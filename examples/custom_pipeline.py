@@ -76,9 +76,11 @@ def main():
         maps=("texture",),
     )
 
-    asset = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/assets/diablo"
-    out = sys.argv[2] if len(sys.argv) > 2 else "/tmp/toon.png"
-    model = load_model(asset)
+    from tiny_renderer_tpu.models import seeded_model
+
+    asset = sys.argv[1] if len(sys.argv) > 1 else "-"
+    out = sys.argv[2] if len(sys.argv) > 2 else "toon.png"
+    model = seeded_model("diablo") if asset == "-" else load_model(asset)
     scene = Scene(model, "toon")
     scene.set_light_direction(jnp.asarray([0.35, 0.0, 0.94], jnp.float32))
     scene.render()

@@ -8,10 +8,11 @@ Angles are the reference's orbit parameterization (src/app.rs:200-207:
 camera at (sin a, 0, cos a), light at (sin b, 0, cos b)).  One Scene per
 pipeline is built lazily and reused — after the first request per
 pipeline every render is a single warm jit dispatch; a lock serializes
-device work (one renderer process per chip, DEPLOY.md).  The overflow
+device work (one renderer process per card, DEPLOY.md).  The overflow
 flag is surfaced in /healthz as DEPLOY.md prescribes.
 
 Run:  python examples/serve_http.py [asset_dir] [port] [--size N] [--backend B]
+      (asset_dir "-" or omitted: the seeded diablo-shaped scene)
 Try:  curl -o frame.png 'http://localhost:8000/render?pipeline=shadow&camera=0.9'
 """
 
@@ -33,8 +34,12 @@ class FrameService:
 
     def __init__(self, asset_dir, size=400, backend="auto"):
         from tiny_renderer_tpu import RenderConfig, load_model
+        from tiny_renderer_tpu.models import seeded_model
 
-        self.model = load_model(asset_dir, verbose=False)
+        self.model = (
+            seeded_model("diablo") if asset_dir in (None, "-")
+            else load_model(asset_dir, verbose=False)
+        )
         self.config = RenderConfig(width=size, height=size)
         self.backend = backend
         self._scenes = {}
@@ -129,7 +134,7 @@ def main():
         i = args.index("--size"); size = int(args[i + 1]); del args[i:i + 2]
     if "--backend" in args:
         i = args.index("--backend"); backend = args[i + 1]; del args[i:i + 2]
-    asset = args[0] if args else "/root/reference/assets/diablo"
+    asset = args[0] if args else None
     port = int(args[1]) if len(args) > 1 else 8000
     if backend == "jnp":
         # CPU-only serving: pin the platform BEFORE any jax use, or the
@@ -138,7 +143,7 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
     server, _ = serve(asset, port=port, size=size, backend=backend)
-    print(f"serving {asset} on http://127.0.0.1:{server.server_address[1]} "
+    print(f"serving {asset or 'the seeded diablo scene'} on http://127.0.0.1:{server.server_address[1]} "
           f"({size}x{size}, backend={backend})", flush=True)
     server.serve_forever()
 

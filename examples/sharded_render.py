@@ -2,19 +2,24 @@
 
 Renders one full frame with the screen rows sharded across a
 jax.sharding.Mesh — the scale-out path for resolutions/scenes beyond one
-chip (docs/API.md "Multi-chip"; the sharded output is bit-identical to
-single-device, pinned by tests/test_parallel.py).  On real hardware the
-mesh axes map onto the ICI fabric; here the script self-bootstraps 8
-virtual CPU devices so it runs anywhere (same technique as the driver's
-dryrun — the XLA flag must be set before the backend initializes).
+card (docs/API.md "Multi-chip"; the sharded output is bit-identical to
+single-device, pinned by tests/test_parallel.py).  On a GPU host the mesh
+spans the real cards (and the raster is the GPU kernel); on a CPU-only
+host the script brings up 8 virtual CPU devices so it runs anywhere (the
+XLA flag must be set before the backend initializes, and only affects the
+CPU platform).
 
-Run:  python examples/sharded_render.py [asset_dir] [out.png] [--replicate-pass1]
+Run:  python examples/sharded_render.py [asset_dir|-] [out.png] [--replicate-pass1]
       python examples/sharded_render.py [asset_dir] [out.png] --pipelined
         (--pipelined: a 3-frame orbit through render_sequence_pipelined —
          two-pass pipeline parallelism on a ("stage", "rows") mesh; writes
          out.png per frame with a -N suffix)
-      --size N renders NxN instead of the reference's 800x800 (the frame
-      height must stay divisible by the mesh's row axis).
+      --size N renders NxN.  The frame height must be divisible by the
+      mesh's row axis (every device, or half of them with --pipelined) and,
+      with the GPU kernel, each shard must be whole tile_h-row tiles.  The
+      default is the reference's 800x800 on the CPU and 1024x1024 on a GPU
+      host, whose shards are whole tiles on 1, 2, 4 or 8 cards.  asset_dir
+      "-" or omitted: the seeded diablo-shaped scene.
 """
 
 from __future__ import annotations
@@ -24,34 +29,39 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-N_DEVICES = 8
+CPU_DEVICES = 8
 
 os.environ["XLA_FLAGS"] = (
     " ".join(
         f for f in os.environ.get("XLA_FLAGS", "").split()
         if not f.startswith("--xla_force_host_platform_device_count")
     )
-    + f" --xla_force_host_platform_device_count={N_DEVICES}"
+    + f" --xla_force_host_platform_device_count={CPU_DEVICES}"
 ).strip()
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
+
+# The real cards when JAX runs on a GPU, else the virtual CPU devices.
+N_DEVICES = len(jax.devices())
 
 
 def main():
     from tiny_renderer_tpu import RenderConfig, load_model
+    from tiny_renderer_tpu.models import seeded_model
     from tiny_renderer_tpu.ops.vertex import expand_geometry
     from tiny_renderer_tpu.parallel.sharding import (
         make_row_mesh,
         render_frame_sharded,
     )
+    from tiny_renderer_tpu.pipelines.frame import resolve_backend
 
     argv = list(sys.argv[1:])
-    size = 800
+    # The GPU kernel needs whole tile_h-row tiles per shard; the CPU's
+    # dense raster takes any shard height.
+    tile_h = None if resolve_backend("auto") == "jnp" else RenderConfig().tile_h
+    size = 800 if tile_h is None else 1024
     if "--size" in argv:
         i = argv.index("--size")
         if i + 1 >= len(argv):
@@ -60,14 +70,10 @@ def main():
             size = int(argv[i + 1])
         except ValueError:
             sys.exit(f"--size must be an integer, got {argv[i + 1]!r}")
-        if size <= 0 or size % N_DEVICES != 0:
-            sys.exit(
-                f"--size must be a positive multiple of the mesh's row "
-                f"axis ({N_DEVICES}), got {size}"
-            )
         del argv[i:i + 2]
     # --replicate-pass1: full-height per-device light pass instead of the
-    # all_gather'ed shadow map (the ICI-vs-FLOPs knob; output identical).
+    # all_gather'ed shadow map (the interconnect-vs-FLOPs knob; output
+    # identical).
     replicate = "--replicate-pass1" in argv
     # --pipelined: render a short orbit through the two-pass pipeline-
     # parallel path (("stage", "rows") mesh, ppermute shadow handoff).
@@ -79,10 +85,23 @@ def main():
             "splits the passes across mesh stages instead)"
         )
     argv = [a for a in argv if a not in ("--replicate-pass1", "--pipelined")]
-    asset = argv[0] if len(argv) > 0 else "/root/reference/assets/diablo"
-    out = argv[1] if len(argv) > 1 else "/tmp/sharded.png"
+    if pipelined and N_DEVICES % 2:
+        sys.exit(f"--pipelined needs an even device count, have {N_DEVICES}")
+    rows = N_DEVICES // 2 if pipelined else N_DEVICES
+    if size <= 0 or size % rows != 0:
+        sys.exit(
+            f"--size must be a positive multiple of the mesh's row "
+            f"axis ({rows}), got {size}"
+        )
+    if tile_h is not None and (size // rows) % tile_h != 0:
+        sys.exit(
+            f"--size {size} gives {size // rows}-row shards over {rows} "
+            f"devices; the GPU kernel needs a multiple of tile_h={tile_h}"
+        )
+    asset = argv[0] if len(argv) > 0 else "-"
+    out = argv[1] if len(argv) > 1 else "sharded.png"
 
-    model = load_model(asset)
+    model = seeded_model("diablo") if asset == "-" else load_model(asset)
     geom = expand_geometry({
         "positions": jnp.asarray(model.mesh.positions),
         "tex_coords": jnp.asarray(model.mesh.tex_coords),

@@ -2,7 +2,7 @@
 //
 // The reference renderer's asset path is native code (the Rust `image` crate
 // for TGA with RLE, `obj-rs` for OBJ; reference Cargo.toml:8-10, used at
-// src/app.rs:94-131).  This is the TPU framework's native equivalent: a tiny
+// src/app.rs:94-131).  This is the framework's native equivalent: a tiny
 // dependency-free C++ TGA decoder exposed over a C ABI for ctypes.
 //
 // Output contract (must match tiny_renderer_tpu/assets/tga.py exactly, which

@@ -31,7 +31,7 @@ def main() -> int:
         print("x11_smoke: no DISPLAY — skipping (exit 75)")
         return EX_SKIP
 
-    # CPU-only: a live-display host need not (and must not) grab the TPU.
+    # CPU-only: a live-display host need not hold the accelerator.
     import jax
 
     jax.config.update("jax_platforms", "cpu")

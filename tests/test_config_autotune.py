@@ -1,9 +1,9 @@
 """Per-pipeline tuned defaults (config.resolve_for_pipeline).
 
-The round-4 hardware sweep measured tex_tile=16 a -0.29 ms win for the
-shadow headline but +0.09 for specular, and SL8b1k a -0.45 ms win for
-occlusion but +0.53 for shadow — so the flips ship as PER-PIPELINE tuned
-defaults applied at render entry, not as global RenderConfig defaults.
+Layout choices that suit one pipeline and not another (tex_tile=16 for
+all but specular, SL8 with 1k-strip batches for occlusion only) ship as
+PER-PIPELINE tuned defaults applied at render entry, not as global
+RenderConfig defaults; output is bit-identical either way.
 These tests pin the resolution semantics (atomic groups, explicit
 settings win, auto_tune=False inert) and that every entry point resolves.
 """
@@ -23,39 +23,37 @@ def test_tuned_defaults_per_pipeline():
     assert (r.tex_tile, r.strip_len, r.strip_batch) == (16, 16, 512)
     r = resolve_for_pipeline(c, "occlusion")
     assert (r.tex_tile, r.strip_len, r.strip_batch) == (0, 8, 1024)
-    # r4b/r4c measured tex_tile=16 wins: phong -0.26, default -0.29/-0.46
-    # (diablo/head), normal_map -0.12, darboux -0.14.
     for p in ("phong", "default", "normal_map", "darboux"):
         assert resolve_for_pipeline(c, p).tex_tile == 16
-    # specular measured +0.09 (r4a) — the one negative; never flips.
+    # specular keeps the row-major layout.
     assert resolve_for_pipeline(c, "specular").tex_tile == 0
 
 
 def test_span_tuning_by_resolution():
-    # Pipeline-independent span shrink (r4b: sp42 -0.27 shadow, sp53
-    # -0.17 phong) at the measured resolution tiers; default projection
+    # Pipeline-independent span shrink at the resolution tiers (128x256 px
+    # at <=800, 160x384 px at <=1200 with 16x64 tiles); default projection
     # only; explicit spans or projection opt out.
     for p in ("shadow", "phong", "default"):
         r = resolve_for_pipeline(RenderConfig(), p)
-        assert (r.max_span_y, r.max_span_x) == (4, 2), p
+        assert (r.max_span_y, r.max_span_x) == (8, 4), p
     r = resolve_for_pipeline(RenderConfig(width=1200, height=1200), "shadow")
-    assert (r.max_span_y, r.max_span_x) == (5, 3)
+    assert (r.max_span_y, r.max_span_x) == (10, 6)
     r = resolve_for_pipeline(RenderConfig(width=1600, height=1600), "shadow")
-    assert (r.max_span_y, r.max_span_x) == (8, 4)
+    assert (r.max_span_y, r.max_span_x) == (16, 8)
     # max(w, h) picks the tier (the worst bbox scales with the larger dim).
     r = resolve_for_pipeline(RenderConfig(width=400, height=1100), "shadow")
-    assert (r.max_span_y, r.max_span_x) == (5, 3)
+    assert (r.max_span_y, r.max_span_x) == (10, 6)
     r = resolve_for_pipeline(
         dataclasses.replace(RenderConfig(), max_span_x=3), "shadow"
     )
     # Atomic group: one explicitly non-default member disables the whole
     # span group.  (Explicitly re-stating a DEFAULT value is, by design,
     # indistinguishable from leaving it untouched — value-based check.)
-    assert (r.max_span_y, r.max_span_x) == (8, 3)
+    assert (r.max_span_y, r.max_span_x) == (16, 3)
     r = resolve_for_pipeline(
         dataclasses.replace(RenderConfig(), projection_coef=-0.5), "shadow"
     )
-    assert (r.max_span_y, r.max_span_x) == (8, 4)  # measured envelope only
+    assert (r.max_span_y, r.max_span_x) == (16, 8)  # default projection only
 
 
 def test_explicit_settings_always_win_and_groups_are_atomic():

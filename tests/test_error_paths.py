@@ -18,13 +18,13 @@ from tiny_renderer_tpu.parallel.sharding import (
 BAD_CONFIGS = [
     (dict(width=0, height=64), "frame size"),
     (dict(width=64, height=-1), "frame size"),
-    (dict(width=64, height=64, tile_w=64), "tile_w"),
+    (dict(width=64, height=64, tile_w=96), "tile_w"),
     (dict(width=64, height=64, tile_h=12), "tile_h"),
     (dict(width=64, height=64, max_span_y=0), "span caps"),
     (dict(width=64, height=64, max_incidences=4), "max_incidences"),
     (dict(width=64, height=64, occlusion_samples=0), "occlusion_samples"),
     (dict(width=64, height=64, strip_batch=0), "strip_batch"),
-    (dict(width=64, height=64, raster_group=0), "raster_group"),
+    (dict(width=64, height=64, tile_w=0), "tile_w"),
     # 1 * 3 = 3 is not a multiple of 128 (the strip shade's lane width)
     (dict(width=64, height=64, strip_batch=1, strip_len=3), "strip_len"),
 ]

@@ -17,7 +17,6 @@ import pytest
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
                        "sharded_render.py")
-ASSET = "/root/reference/assets/african_head"
 
 
 def _run(args, out):
@@ -26,7 +25,7 @@ def _run(args, out):
     # drop the conftest's copy so the two don't conflict in one flag string.
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
-        [sys.executable, EXAMPLE, ASSET, out] + args,
+        [sys.executable, EXAMPLE, "-", out] + args,
         capture_output=True, text=True, timeout=600, env=env,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -70,11 +69,11 @@ def test_sharded_example_pipelined(tmp_path):
 ])
 def test_sharded_example_flag_errors(tmp_path, args, msg):
     """Bad flag combinations exit cleanly with a clear message, not a
-    traceback (ADVICE r4)."""
+    traceback."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
-        [sys.executable, EXAMPLE, ASSET, str(tmp_path / "x.png")] + args,
+        [sys.executable, EXAMPLE, "-", str(tmp_path / "x.png")] + args,
         capture_output=True, text=True, timeout=600, env=env,
     )
     assert proc.returncode != 0
@@ -89,3 +88,28 @@ def test_sharded_example_replicate_pass1_identical(tmp_path):
     _run(["--size", "128"], a)
     _run(["--size", "128", "--replicate-pass1"], b)
     assert np.array_equal(_read_png(a), _read_png(b))
+
+
+@pytest.mark.parametrize("n_devices,args", [
+    (8, ["--size", "800"]),                 # 100-row shards
+    (4, ["--size", "800"]),                 # 200-row shards
+    (8, ["--size", "1000", "--pipelined"]),  # 250-row shards over 4 rows
+])
+def test_sharded_example_rejects_partial_tiles(monkeypatch, tmp_path,
+                                               n_devices, args):
+    """With the GPU kernel every row shard must be whole tile_h-row tiles;
+    the example says so instead of failing inside the sharded render."""
+    import importlib.util
+
+    from tiny_renderer_tpu.pipelines import frame
+
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    spec = importlib.util.spec_from_file_location("sharded_render", EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod, "N_DEVICES", n_devices)
+    monkeypatch.setattr(frame, "resolve_backend", lambda backend: "pallas")
+    monkeypatch.setattr(sys, "argv",
+                        [EXAMPLE, "-", str(tmp_path / "x.png")] + args)
+    with pytest.raises(SystemExit, match="multiple of tile_h=16"):
+        mod.main()

@@ -1,7 +1,7 @@
 """Full-resolution (800x800) golden parity vs the oracle.
 
-All 7 pipelines x both assets — the same matrix scripts/tpu_smoke.py
-certifies on hardware (PARITY.md: worst certified mismatch 0.073%).
+All 7 pipelines x both seeded scenes — the same matrix chip_smoke.py
+checks on the GPU.
 
 Slow (~1 min per config on CPU): run explicitly with
     python -m pytest tests/test_fullsize_parity.py -m slow -q --override-ini 'addopts='

@@ -47,24 +47,19 @@ def eight_devices():
 
 def _random_config(rng, width, height):
     """A random VALID knob draw (respects the documented constraints:
-    tile_w multiple of 128, idx_int16 needs tile_h % 16 == 0,
-    strip_batch * strip_len % 128 == 0)."""
+    power-of-two tiles, strip_batch * strip_len % 128 == 0)."""
     tile_h = int(rng.choice([8, 16, 32]))
     strip_len = int(rng.choice([4, 8, 16, 32]))
     knobs = dict(
         width=width, height=height, tri_block=32,
         tile_h=tile_h,
-        tile_w=int(rng.choice([128, 256])),
+        tile_w=int(rng.choice([32, 64, 128, 256])),
         strip_len=strip_len,
         strip_batch=int(rng.choice([128, 512])),
-        raster_group=int(rng.choice([4, 16])),
         csr_indirect=bool(rng.integers(2)),
         binning_compact=bool(rng.integers(2)),
-        fuse_passes=bool(rng.integers(2)),
-        strip_mask=bool(rng.integers(2)),
         strip_planes=bool(rng.integers(2)),
         compact_shade=bool(rng.integers(2)),
-        idx_int16=bool(rng.integers(2)) and tile_h % 16 == 0,
         tex_tile=int(rng.choice([0, 8, 16])),
         shadow_tile=int(rng.choice([0, 8, 16])),
         # Span-grid draws include values tight enough to CLAMP some random
@@ -72,9 +67,6 @@ def _random_config(rng, width, height):
         # flag is clear, so this samples both regimes deterministically.
         max_span_y=int(rng.choice([2, 4, 8])),
         max_span_x=int(rng.choice([2, 4])),
-        # 0 = auto (single band at fuzz scale); forced bands exercise the
-        # capacity-path partition on ordinary scenes.
-        row_bands=int(rng.choice([0, 0, 2, 3])),
     )
     return RenderConfig(**knobs)
 

@@ -1,8 +1,8 @@
 """The driver's entry points must work standalone, without conftest's env.
 
-The driver runs dryrun_multichip in a fresh process on the TPU host (one
-real device); __graft_entry__ must bootstrap its own virtual CPU mesh.
-These tests run it in clean subprocesses with conftest's env stripped.
+dryrun_multichip runs in a fresh process; on a CPU host __graft_entry__
+must bootstrap its own virtual CPU mesh.  These tests run it in clean
+subprocesses with conftest's env stripped.
 """
 
 import os
@@ -21,7 +21,7 @@ def _run_clean(code: str, extra_env=None, timeout=600):
         for k, v in os.environ.items()
         if k not in ("XLA_FLAGS", "JAX_PLATFORMS")
     }
-    # Keep the subprocess off the real TPU (one-process-at-a-time rule).
+    # Keep the subprocess on the CPU (the virtual-device path under test).
     env["JAX_PLATFORMS"] = "cpu"
     if extra_env:
         env.update(extra_env)

@@ -18,7 +18,6 @@ import pytest
 from tiny_renderer_tpu import RenderConfig, Scene
 from tiny_renderer_tpu.app import InputState, run_interactive
 
-ASSET = "/root/reference/assets/african_head"
 DT = 1.0 / 60.0
 
 
@@ -193,7 +192,7 @@ def test_window_close_ends_loop(small_scene):
 def test_viewer_fallback_chain(small_scene, monkeypatch):
     """DISPLAY set but both viewers unavailable -> headless fallback (the
     reference requires a window; headless-first is our documented
-    divergence for TPU hosts)."""
+    divergence for display-less accelerator hosts)."""
     import tiny_renderer_tpu.app as app_mod
     import tiny_renderer_tpu.viewer_x11 as vx
 

@@ -2,11 +2,12 @@
 
 Every RenderConfig perf knob is documented bit-identity-pinned (config.py)
 and tested individually; this matrix pins COMPOSITIONS, where gating
-interplay lives (e.g. fuse_passes is disabled by strip_planes/idx_int16,
-strip_mask must compose with strip_planes, csr_indirect changes the
-record layout under every other knob).  All combos must render the exact
-same frame: raster resolve is lexicographic and shading expressions are
-shared, so any knob changing a pixel is a bug, not noise.
+interplay lives (e.g. strip_planes must compose with csr_indirect and the
+texture swizzles, csr_indirect changes the record layout under every
+other knob, and the tile shape re-partitions the kernel grid).  All combos
+must render the exact same frame: raster resolve is lexicographic and
+shading expressions are shared, so any knob changing a pixel is a bug,
+not noise.
 """
 
 import dataclasses
@@ -21,34 +22,29 @@ from conftest import geom_dict, tex_dict
 
 BASE = RenderConfig(width=64, height=64, strip_batch=32, tile_h=8)
 
-# (name, knob overrides) — rendered with needs_z=False so fuse_passes can
-# engage where its gate allows.
-# Fast set: every knob appears at least once (via a single or inside
-# all-on / the retained pairs); the remaining compositions exercise the
-# same gates and run in -m slow.
-_SLOW = {"fuse+planes", "i16+planes", "sl32", "sl4", "t16", "swz16",
-         "swz16+planes", "swz8+fullplane", "sswz16+swz16",
-         "mask+planes", "i16", "sswz16"}
+# (name, knob overrides) — rendered with needs_z=False (the burst
+# posture).  Fast set: every knob appears at least once (via a single or
+# inside all-on); the remaining compositions exercise the same gates and
+# run in -m slow.
+_SLOW = {"planes", "sl32", "sl4", "t16", "swz16", "swz16+planes",
+         "swz8+fullplane", "sswz16+swz16", "sswz16"}
 COMBOS = [
-    ("fuse", dict(fuse_passes=True)),
-    ("mask+planes", dict(strip_mask=True, strip_planes=True)),
-    ("i16", dict(idx_int16=True, tile_h=16)),
-    ("nocsr+mask", dict(csr_indirect=False, strip_mask=True)),
-    ("fuse+planes", dict(fuse_passes=True, strip_planes=True)),
-    ("i16+planes", dict(idx_int16=True, strip_planes=True, tile_h=16)),
+    ("nocsr", dict(csr_indirect=False)),
+    ("planes", dict(strip_planes=True)),
     ("fullplane", dict(compact_shade=False)),
     ("sl32", dict(strip_len=32)),
     ("sl4", dict(strip_len=4)),
     ("t16", dict(tile_h=16)),
+    ("t32x64", dict(tile_h=32, tile_w=64)),
     ("swz16", dict(tex_tile=16)),
     ("swz16+planes", dict(tex_tile=16, strip_planes=True)),
     ("swz8+fullplane", dict(tex_tile=8, compact_shade=False)),
     ("sswz16", dict(shadow_tile=16)),
-    ("sswz8+fuse", dict(shadow_tile=8, fuse_passes=True)),
+    ("sswz8", dict(shadow_tile=8)),
     ("sswz16+swz16", dict(shadow_tile=16, tex_tile=16)),
-    ("all-on", dict(fuse_passes=True, strip_mask=True, strip_planes=True,
-                    idx_int16=True, csr_indirect=False, tile_h=16,
-                    tex_tile=16, shadow_tile=16)),
+    ("all-on", dict(strip_planes=True, csr_indirect=False,
+                    binning_compact=True, tile_h=16, tex_tile=16,
+                    shadow_tile=16)),
 ]
 COMBOS = [
     pytest.param(n, k, id=n,

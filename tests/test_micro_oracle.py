@@ -3,7 +3,7 @@
 test_shader_fixtures anchors the fragment math independently, but the
 vertex stage + prepare stack (ops/vertex.py, ops/mathlib.py) are shared
 between the NumPy oracle and the device path — a transcription error there
-is invisible to oracle parity (VERDICT r3, Missing #3 / Weak #4).  This
+is invisible to oracle parity.  This
 file closes that hole: a scalar float64 transliteration of the FULL Rust
 reference path — prepare (shader.rs:183-279), vertex shaders
 (shader.rs:282-869), the serial bbox-scan raster of Scene::render

@@ -156,13 +156,11 @@ def test_pre_expanded_geometry_identical(head_scene_data, camera):
         np.testing.assert_array_equal(np.asarray(a["shadow"]), np.asarray(b["shadow"]))
 
 
-@pytest.mark.parametrize("knob", [
-    "csr_indirect",  # shipped default — stays fast
-    pytest.param("strip_mask", marks=pytest.mark.slow),  # measured-negative
-])
+@pytest.mark.parametrize("knob", ["csr_indirect", "binning_compact"])
 def test_layout_knobs_bit_identical(head_scene_data, camera, knob):
-    """csr_indirect and strip_mask are pure layout/traffic changes on the
-    kernel path: frames must be bit-identical with the knob flipped."""
+    """csr_indirect (record layout) and binning_compact (sort before or
+    after compaction) are pure layout/traffic changes on the kernel path:
+    frames must be bit-identical with the knob flipped."""
     import dataclasses
 
     geom, tex = head_scene_data
@@ -178,43 +176,6 @@ def test_layout_knobs_bit_identical(head_scene_data, camera, knob):
         fn = make_frame_fn("shadow", cfg, backend="pallas_interpret")
         frames[v] = np.asarray(fn(gj, tj, *args)["frame"])
     np.testing.assert_array_equal(frames[False], frames[True])
-
-
-@pytest.mark.parametrize("pipeline", [
-    "shadow", pytest.param("occlusion", marks=pytest.mark.slow),
-])
-def test_fused_raster_bit_identical(head_scene_data, camera, pipeline):
-    """fuse_passes (both depth loops in one pallas_call) is pure
-    scheduling: frame and shadow map must be bit-identical to the
-    unfused kernel path at the same (burst) posture."""
-    import dataclasses
-    import functools
-
-    from tiny_renderer_tpu.pipelines.frame import render_frame
-
-    geom, tex = head_scene_data
-    light, look_from, look_at, up = camera
-    gj = jax.tree.map(jnp.asarray, geom)
-    tj = jax.tree.map(jnp.asarray, tex)
-    args = (jnp.asarray(light), jnp.asarray(look_from), jnp.asarray(look_at),
-            jnp.asarray(up))
-    outs = {}
-    for fuse in (True, False):
-        cfg = RenderConfig(
-            width=96, height=96, tri_block=32, tile_h=8, fuse_passes=fuse
-        )
-        fn = jax.jit(functools.partial(
-            render_frame, pipeline=pipeline, config=cfg,
-            backend="pallas_interpret", needs_z=False,
-        ))
-        outs[fuse] = fn(gj, tj, *args)
-        assert outs[fuse]["z"] is None
-    np.testing.assert_array_equal(
-        np.asarray(outs[True]["frame"]), np.asarray(outs[False]["frame"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(outs[True]["shadow"]), np.asarray(outs[False]["shadow"])
-    )
 
 
 def test_dedup_gather_exact():
@@ -235,7 +196,7 @@ def test_dedup_gather_exact():
         np.testing.assert_array_equal(got, expect)
 
 
-@pytest.mark.slow  # dedup is a measured-negative knob (BASELINE round 3)
+@pytest.mark.slow  # dedup is a default-off knob
 def test_occlusion_dedup_bit_identical(head_scene_data, camera):
     """occlusion_dedup collapses duplicate fetches of equal values — the
     frame must be bit-identical with the knob flipped."""
@@ -283,7 +244,7 @@ def _strip_args(head_scene_data, camera):
     )
 
 
-# strip_planes is a measured-negative, non-shipped knob; the SHIPPED
+# strip_planes is a default-off knob; the SHIPPED
 # compact-shade path's fast coverage is test_strip_shade_within_tie_flip_
 # budget_of_jnp, so the planes-vs-compact pins all run in -m slow.
 @pytest.mark.slow
@@ -351,14 +312,13 @@ def test_strip_shade_within_tie_flip_budget_of_jnp(head_scene_data, camera, pipe
     assert mismatch <= MISMATCH_BUDGET, f"{pipeline}: mismatch {mismatch:.4%}"
 
 
-# idx_int16/strip_pack_words are measured-negative, non-shipped knobs:
-# their bit-identity pins run in -m slow (4 interpret compiles each).
+# strip_pack_words is a non-default layout knob: its bit-identity pin
+# runs in -m slow.
 @pytest.mark.slow
 @pytest.mark.parametrize("pipeline", ["phong", "shadow"])
-def test_writeback_and_idx_dtype_variants_identical(head_scene_data, camera, pipeline):
-    """The i16 index target and the direct-u8 strip writeback are pure
-    layout changes: frames must be bit-identical to the i32/word-packed
-    defaults on the same backend."""
+def test_writeback_variants_identical(head_scene_data, camera, pipeline):
+    """The direct-u8 strip writeback is a pure layout change: frames must
+    be bit-identical to the word-packed default on the same backend."""
     import dataclasses
 
     geom, tex = head_scene_data
@@ -367,11 +327,7 @@ def test_writeback_and_idx_dtype_variants_identical(head_scene_data, camera, pip
     cam = tuple(jnp.asarray(v) for v in camera)
     base = RenderConfig(width=128, height=128)
     ref = make_frame_fn(pipeline, base, backend="pallas_interpret")(gj, tj, *cam)
-    for cfg in (
-        dataclasses.replace(base, idx_int16=True),
-        dataclasses.replace(base, strip_pack_words=False),
-        dataclasses.replace(base, idx_int16=True, strip_pack_words=False),
-    ):
+    for cfg in (dataclasses.replace(base, strip_pack_words=False),):
         out = make_frame_fn(pipeline, cfg, backend="pallas_interpret")(gj, tj, *cam)
         np.testing.assert_array_equal(
             np.asarray(out["frame"]), np.asarray(ref["frame"])

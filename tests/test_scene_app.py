@@ -52,8 +52,8 @@ def test_scene_render_sequence_matches_per_frame_renders(head_model):
     """Scene.render_sequence (the public burst API) must return exactly the
     frames a per-pose render()/get_frame_buffer() loop produces — same orbit
     angle mapping (src/app.rs:200-207), same presentation flip, and the
-    Scene's own backend (VERDICT r2 #7: a Scene built with backend="jnp"
-    must not silently burst on another backend)."""
+    Scene's own backend (a Scene built with backend="jnp" must not
+    silently burst on another backend)."""
     cfg = RenderConfig(width=64, height=64, tri_block=32)
     scene = Scene(head_model, "shadow", cfg, backend="jnp")
     cam = np.array([0.3, 1.7, 4.0], np.float32)
@@ -86,7 +86,7 @@ def test_app_headless_end_to_end(tmp_path, capsys):
     out = str(tmp_path / "frame.png")
     z = str(tmp_path / "z.png")
     rc = main([
-        "-p", "/root/reference/assets/african_head", "-s", "default",
+        "--scene", "african_head", "-s", "default",
         "--size", "64", "64", "--frames", "2", "--orbit",
         "--save", out, "--dump-z", z, "--backend", "jnp",
     ])
@@ -111,7 +111,7 @@ def test_app_profile_writes_trace(tmp_path):
 
     prof = str(tmp_path / "prof")
     rc = main([
-        "-p", "/root/reference/assets/african_head", "-s", "default",
+        "--scene", "african_head", "-s", "default",
         "--size", "64", "64", "--frames", "1",
         "--save", str(tmp_path / "f.png"), "--backend", "jnp",
         "--profile", prof,
@@ -128,7 +128,7 @@ def test_app_ignores_unknown_args(tmp_path, capsys):
 
     out = str(tmp_path / "frame.png")
     rc = main([
-        "-p", "/root/reference/assets/african_head", "-s", "default",
+        "--scene", "african_head", "-s", "default",
         "--size", "64", "64", "--frames", "1", "--backend", "jnp",
         "--save", out, "--bogus-flag", "junkvalue",
     ])
@@ -174,7 +174,7 @@ def test_cli_projection_knobs(tmp_path):
 
     out1 = tmp_path / "near.png"
     out2 = tmp_path / "far.png"
-    base = ["-p", "/root/reference/assets/african_head", "-s", "default",
+    base = ["--scene", "african_head", "-s", "default",
             "--size", "64", "64", "--frames", "1", "--backend", "jnp",
             "--no-fps"]
     assert main(base + ["--save", str(out1)]) == 0
@@ -203,7 +203,7 @@ def test_cli_knob_overrides(tmp_path, capsys):
 
     base = str(tmp_path / "base.png")
     knobbed = str(tmp_path / "knobbed.png")
-    argv = ["-p", "/root/reference/assets/african_head", "-s", "shadow",
+    argv = ["--scene", "african_head", "-s", "shadow",
             "--size", "64", "64", "--frames", "1", "--backend", "jnp"]
     assert main(argv + ["--save", base]) == 0
     assert main(argv + ["--save", knobbed, "--knob", "shadow_tile=16",
@@ -228,7 +228,7 @@ def test_cli_ssaa(tmp_path):
 
     big = str(tmp_path / "big.png")
     aa = str(tmp_path / "aa.png")
-    base = ["-p", "/root/reference/assets/african_head", "-s", "phong",
+    base = ["--scene", "african_head", "-s", "phong",
             "--frames", "1", "--backend", "jnp"]
     assert main(base + ["--size", "64", "64", "--ssaa", "2",
                         "--save", aa]) == 0

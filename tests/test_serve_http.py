@@ -18,13 +18,13 @@ import pytest
 
 
 @pytest.fixture(scope="module")
-def server():
+def server(asset_root):
     path = os.path.join(os.path.dirname(__file__), "..", "examples",
                         "serve_http.py")
     spec = importlib.util.spec_from_file_location("example_serve", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    srv, service = mod.serve("/root/reference/assets/african_head",
+    srv, service = mod.serve(os.path.join(asset_root, "african_head"),
                              port=0, size=96, backend="jnp")
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -40,7 +40,7 @@ def _get(url):
         return e.code, e.headers.get("Content-Type"), e.read()
 
 
-def test_render_endpoint_serves_scene_pixels(server):
+def test_render_endpoint_serves_scene_pixels(server, asset_root):
     base, _ = server
     status, ctype, body = _get(f"{base}/render?pipeline=phong&camera=0.9")
     assert status == 200 and ctype == "image/png"
@@ -52,7 +52,7 @@ def test_render_endpoint_serves_scene_pixels(server):
     from tiny_renderer_tpu import RenderConfig, Scene, load_model
     from tiny_renderer_tpu.utils.png import png_bytes
 
-    scene = Scene(load_model("/root/reference/assets/african_head",
+    scene = Scene(load_model(os.path.join(asset_root, "african_head"),
                              verbose=False),
                   "phong", RenderConfig(width=96, height=96), backend="jnp")
     scene.set_camera([math.sin(0.9), 0.0, math.cos(0.9)],

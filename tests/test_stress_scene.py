@@ -66,127 +66,39 @@ def test_subdivided_render_matches_original_silhouette(head_model, camera):
     assert (cov0 != cov1).mean() < 0.01
 
 
-def test_csr_indirect_smem_budget_fallback(diablo_model, head_model, camera):
-    """The kernel prefetches the csr_indirect id list into SMEM (~1 MB on
-    v5e); the 80k-triangle capacity config's list is ~1.26 MB and failed
-    TPU AOT compile in the round-5 live window.  bin_triangles must fall
-    back to the gathered-record layout (tris=None) above the budget and
-    keep the indirect layout below it."""
+@pytest.mark.parametrize("indirect", [True, False])
+def test_csr_indirect_layout_at_any_size(diablo_model, camera, indirect):
+    """csr_indirect picks the record layout and nothing else does: a
+    20k-triangle scene with a 250k incidence cap keeps the compact
+    (T, lanes) table + id list when the knob is on, and the gathered
+    (cap, lanes) records when it is off — no device-memory budget
+    switches layouts behind the caller's back."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
 
     from tiny_renderer_tpu.ops import mathlib as ml
-    from tiny_renderer_tpu.ops.binning import (
-        SMEM_ID_LIST_BUDGET_BYTES,
-        bin_triangles,
-        incidence_cap,
-    )
+    from tiny_renderer_tpu.ops.binning import bin_triangles, incidence_cap
     from tiny_renderer_tpu.ops.vertex import triangle_setup
 
-    def bin_for(mesh_geom, cfg):
-        light, look_from, look_at, up = map(jnp.asarray, camera)
-        uniforms = ml.default_prepare(cfg, light, look_from, look_at, up, jnp)
-        setup = triangle_setup(
-            jax.tree.map(jnp.asarray, mesh_geom), uniforms, cfg, xp=jnp
-        )
-        return bin_triangles(setup, cfg, ())
-
-    import dataclasses
-
-    cfg = RenderConfig(width=128, height=128, csr_indirect=True)
-
-    # The 80k capacity config itself crosses the budget at the default 4T
-    # cap — pin that arithmetic without paying for an 80k bin here.
-    assert incidence_cap(80352, cfg) * 4 > SMEM_ID_LIST_BUDGET_BYTES
-
-    # Execute the over-budget branch on a 20k mesh by widening the cap
-    # explicitly (same code path, ~4x cheaper in the fast suite).
     big = geom_dict(subdivide_mesh(diablo_model.mesh, levels=1))  # 20,088
-    T_big = big["pos_idx"].shape[0]
-    cfg_big = dataclasses.replace(cfg, max_incidences=250_000)
-    assert incidence_cap(T_big, cfg_big) * 4 > SMEM_ID_LIST_BUDGET_BYTES
-    rec, tris, starts, _ = bin_for(big, cfg_big)
-    assert tris is None, "over-budget id list must use the gathered layout"
-    assert rec.shape[0] == incidence_cap(T_big, cfg_big)  # gathered rows
-
-    mid = geom_dict(subdivide_mesh(head_model.mesh, levels=1))  # 9,968
-    T_mid = mid["pos_idx"].shape[0]
-    assert incidence_cap(T_mid, cfg) * 4 <= SMEM_ID_LIST_BUDGET_BYTES
-    rec, tris, starts, _ = bin_for(mid, cfg)
-    assert tris is not None, "under-budget scenes keep the indirect layout"
-    assert rec.shape[0] == T_mid  # compact per-triangle table
-
-
-@pytest.mark.parametrize("extra", [
-    {},
-    pytest.param({"strip_mask": True}, marks=pytest.mark.slow),
-])
-def test_row_bands_bit_identical(head_scene_data, camera, extra):
-    """Row-band composition (capacity-scale raster) is a pure partition:
-    forcing row_bands=4 must render the exact frame of the default single
-    band, including the two-pass shadow pipeline, strip shading, and the
-    kernel-emitted strip coverage plane (strip_mask variant)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    geom, tex = head_scene_data
-    cfg = RenderConfig(width=128, height=128, tile_h=8, strip_batch=128,
-                       **extra)
-    args = (
-        jax.tree.map(jnp.asarray, geom), jax.tree.map(jnp.asarray, tex),
-        *map(jnp.asarray, camera),
-    )
-    ref = make_frame_fn("shadow", cfg, backend="pallas_interpret")(*args)
-    banded = make_frame_fn(
-        "shadow", dataclasses.replace(cfg, row_bands=4),
-        backend="pallas_interpret",
-    )(*args)
-    assert not bool(np.asarray(banded["overflow"]))
-    np.testing.assert_array_equal(
-        np.asarray(ref["frame"]), np.asarray(banded["frame"])
-    )
-
-
-def test_auto_row_bands_capacity_plan():
-    """The auto band count engages exactly when both kernel budgets are
-    exceeded, and every planned band's cap fits the budget its layout
-    will use (SMEM id list for the indirect layout)."""
-    import numpy as np_
-
-    from tiny_renderer_tpu.ops.binning import SMEM_ID_LIST_BUDGET_BYTES
-    from tiny_renderer_tpu.pipelines.frame import _auto_row_bands, _band_plan
-
-    def fake_setup(T):
-        return {"a1": np_.zeros((T,), np_.float32)}
-
-    cfg = RenderConfig(width=800, height=800)
-    # Reference-class and the 40k test scene: single band.
-    assert _auto_row_bands(fake_setup(5022), cfg) == 1
-    assert _auto_row_bands(fake_setup(39872), cfg) == 1
-    # The two capacity configs that failed TPU AOT compile in the
-    # round-5 live window: banded, and every band back under budget.
-    for T in (80352, 321408):
-        R = _auto_row_bands(fake_setup(T), cfg)
-        assert R > 1
-        plan = _band_plan(fake_setup(T), cfg)
-        assert len(plan) == R
-        assert sum(bt for _, bt, _ in plan) == cfg.tiles_y
-        for _, _, cfg_b in plan:
-            from tiny_renderer_tpu.ops.binning import incidence_cap
-
-            assert (incidence_cap(T, cfg_b) * 4
-                    <= SMEM_ID_LIST_BUDGET_BYTES)
-    # Forcing row_bands wins over auto.
-    assert _auto_row_bands(
-        fake_setup(80352), dataclasses_replace(cfg, row_bands=3)) == 3
-
-
-def dataclasses_replace(cfg, **kw):
-    import dataclasses
-
-    return dataclasses.replace(cfg, **kw)
+    T = big["pos_idx"].shape[0]
+    cfg = RenderConfig(width=128, height=128, csr_indirect=indirect,
+                       max_incidences=250_000)
+    light, look_from, look_at, up = map(jnp.asarray, camera)
+    uniforms = ml.default_prepare(cfg, light, look_from, look_at, up, jnp)
+    setup = triangle_setup(jax.tree.map(jnp.asarray, big), uniforms, cfg, xp=jnp)
+    rec, tris, starts, ovf = bin_triangles(setup, cfg, ())
+    cap = incidence_cap(T, cfg)
+    assert not bool(ovf)
+    if indirect:
+        assert tris is not None and tris.shape == (cap,)
+        assert rec.shape[0] == T  # compact per-triangle table
+    else:
+        assert tris is None
+        assert rec.shape[0] == cap  # gathered rows
+    assert starts.shape == (cfg.num_tiles + 1,)
 
 
 @pytest.mark.slow  # 40k-triangle interpret-mode run (~25 s)
@@ -217,16 +129,13 @@ def test_stress_40k_triangles_backends_agree(big_scene, camera, backend):
     assert mismatch <= 0.005, f"stress mismatch {mismatch:.4%}"
 
 
-@pytest.mark.slow  # 80k-tri interpret run (~1 min): the capacity config's
-# auto-banded raster end-to-end
-def test_stress_80k_auto_banded_agrees(diablo_model, camera):
-    """The 80k-triangle capacity scene auto-engages row bands (the
-    round-5 hardware walls) and must still agree with the jnp dense
-    path within the tie-flip budget, with no overflow."""
+@pytest.mark.slow  # 80k-tri interpret run (~1 min): the capacity config
+# end-to-end
+def test_stress_80k_agrees(diablo_model, camera):
+    """The 80k-triangle capacity scene must agree with the jnp dense path
+    within the tie-flip budget, with no overflow."""
     import jax
     import jax.numpy as jnp
-
-    from tiny_renderer_tpu.pipelines.frame import _auto_row_bands
 
     geom = geom_dict(subdivide_mesh(diablo_model.mesh, levels=2))
     tex = tex_dict(diablo_model)
@@ -236,9 +145,6 @@ def test_stress_80k_auto_banded_agrees(diablo_model, camera):
         jax.tree.map(jnp.asarray, geom), jax.tree.map(jnp.asarray, tex),
         *map(jnp.asarray, camera),
     )
-    # The auto plan must be banded at this scale (SMEM id-list budget).
-    setup = {"a1": np.zeros((80352,), np.float32)}
-    assert _auto_row_bands(setup, cfg) > 1
     ref = make_frame_fn("phong", cfg, backend="jnp")(*args)
     out = make_frame_fn("phong", cfg, backend="pallas_interpret")(*args)
     assert not bool(np.asarray(ref["overflow"]))
@@ -247,7 +153,7 @@ def test_stress_80k_auto_banded_agrees(diablo_model, camera):
         (np.asarray(out["frame"]) != np.asarray(ref["frame"]))
         .any(axis=-1).mean()
     )
-    assert mismatch <= 0.005, f"banded stress mismatch {mismatch:.4%}"
+    assert mismatch <= 0.005, f"80k stress mismatch {mismatch:.4%}"
 
 
 @pytest.mark.slow  # 40k-tri sharded run; shard_triangles' fast reps are

@@ -195,18 +195,24 @@ class TestBinningAndPallas:
             assert got == expect, f"tile {tile}"
         assert not bool(overflow)
 
-    def test_pallas_interpret_matches_jnp(self):
-        cfg, s = self._setup()
+    @pytest.mark.parametrize("W,H", [(256, 64), (200, 72)])
+    def test_pallas_interpret_matches_jnp(self, W, H):
+        """The kernel (Pallas interpreter) against the dense jnp raster,
+        at a tile-multiple frame and at one whose width and height are not
+        (200 = 128 + 72 px, 72 = 9 * 8 rows): the kernel writes whole
+        tiles and the caller crops."""
+        cfg, s = self._setup(W=W, H=H)
         z_j, idx_j = jax.jit(
             lambda s: rasterize_jnp(s, cfg.height, cfg.width, cfg.tri_block)
         )(s)
         records, tris, counts, _ = jax.jit(lambda s: bin_triangles(s, cfg))(s)
-        z_p, idx_p, _, _ = rasterize_pallas(
+        z_p, idx_p, _ = rasterize_pallas(
             records, counts, None, tris,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x,
             interpret=True,
         )
+        assert z_p.shape == (cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w)
         z_p = np.asarray(z_p)[: cfg.height, : cfg.width]
         idx_p = np.asarray(idx_p)[: cfg.height, : cfg.width]
         idx_j = np.asarray(idx_j)
@@ -219,40 +225,45 @@ class TestBinningAndPallas:
         covered = idx_j >= 0
         np.testing.assert_allclose(z_p[covered], z_j[covered], rtol=1e-5, atol=1e-4)
 
-    def test_raster_group_invariant(self):
-        """The depth loop's candidate merge is exact at any group width —
-        winners and z must be bit-identical across group sizes (the tie
-        rule must not depend on the ILP knob)."""
-        cfg, s = self._setup()
-        records, tris, counts, _ = jax.jit(lambda s: bin_triangles(s, cfg))(s)
+    def test_tile_shape_invariant(self):
+        """The tile shape only partitions the screen: each pixel sees the
+        same triangles in the same ascending order under any tiling, so
+        winners and z are bit-identical across tile shapes."""
+        import dataclasses
 
-        def run(group):
-            z, idx, _, _ = rasterize_pallas(
+        cfg, s = self._setup()
+
+        def run(th, tw):
+            c = dataclasses.replace(cfg, tile_h=th, tile_w=tw,
+                                    max_span_y=64 // th, max_span_x=256 // tw)
+            records, tris, counts, ovf = jax.jit(
+                lambda s: bin_triangles(s, c))(s)
+            assert not bool(ovf)
+            z, idx, _ = rasterize_pallas(
                 records, counts, None, tris,
-                tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-                tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x,
-                group=group, interpret=True,
+                tile_h=th, tile_w=tw, tiles_y=c.tiles_y, tiles_x=c.tiles_x,
+                interpret=True,
             )
             return np.asarray(z), np.asarray(idx)
 
-        z4, idx4 = run(4)
-        for g in (1, 3, 8):
-            zg, idxg = run(g)
-            np.testing.assert_array_equal(idxg, idx4)
-            np.testing.assert_array_equal(zg, z4)
+        z0, idx0 = run(8, 128)
+        for th, tw in ((16, 64), (32, 32), (4, 256)):
+            zg, idxg = run(th, tw)
+            np.testing.assert_array_equal(idxg, idx0)
+            np.testing.assert_array_equal(zg, z0)
 
     def test_emit_z_false_same_winners(self):
-        """emit_z=False keeps the resolve in VMEM scratch: idx identical,
-        z not emitted."""
+        """emit_z=False drops the z target only: idx identical, z not
+        emitted."""
         cfg, s = self._setup()
         records, tris, counts, _ = jax.jit(lambda s: bin_triangles(s, cfg))(s)
-        z, idx, _, _ = rasterize_pallas(
+        z, idx, _ = rasterize_pallas(
             records, counts, None, tris,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x,
             interpret=True,
         )
-        z2, idx2, _, _ = rasterize_pallas(
+        z2, idx2, _ = rasterize_pallas(
             records, counts, None, tris,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x,
@@ -272,7 +283,7 @@ class TestBinningAndPallas:
             records, tris, counts, _ = jax.jit(
                 lambda s, c=c: bin_triangles(s, c)
             )(s)
-            z, idx, _, _ = rasterize_pallas(
+            z, idx, _ = rasterize_pallas(
                 records, counts, None, tris,
                 tile_h=c.tile_h, tile_w=c.tile_w,
                 tiles_y=c.tiles_y, tiles_x=c.tiles_x,
@@ -282,50 +293,34 @@ class TestBinningAndPallas:
         np.testing.assert_array_equal(outs[False][0], outs[True][0])
         np.testing.assert_array_equal(outs[False][1], outs[True][1])
 
-    def test_strip_mask_output(self):
-        """emit_strips emits per-strip max winning index agreeing with a
-        host-side reduction of the idx plane."""
-        cfg, s = self._setup()
-        records, tris, counts, _ = jax.jit(lambda s: bin_triangles(s, cfg))(s)
-        SL = 16
-        z, idx, _, strips = rasterize_pallas(
-            records, counts, None, tris,
-            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x,
-            emit_strips=SL, interpret=True,
-        )
-        assert strips is not None
-        idx_n = np.asarray(idx)
-        H, W = idx_n.shape
-        expect = idx_n.reshape(H, W // SL, SL).max(axis=2)
-        np.testing.assert_array_equal(np.asarray(strips), expect)
-
-    def test_idx_int16_late_cast_identical(self):
-        """int16 idx target (i32 scratch, one cast at the final store) must
-        match the i32 target exactly."""
+    def test_row_tile_offset_renders_a_window(self):
+        """Binning and rasterizing a window of tile rows with
+        row_tile_offset (the row-sharded path) gives exactly those rows of
+        the full-frame raster."""
         import dataclasses
 
         cfg, s = self._setup()
-        # Bin with 16-row tiles (the i16 sublane-tile requirement).
-        c16 = dataclasses.replace(cfg, tile_h=16)
-        records16, tris16, counts16, _ = jax.jit(
-            lambda s: bin_triangles(s, c16)
-        )(s)
-
-        def run16(dtype):
-            z, idx, _, _ = rasterize_pallas(
-                records16, counts16, None, tris16,
-                tile_h=16, tile_w=c16.tile_w,
-                tiles_y=c16.tiles_y, tiles_x=c16.tiles_x,
-                idx_dtype=dtype, interpret=True,
+        full_rec, full_tris, full_st, _ = jax.jit(
+            lambda s: bin_triangles(s, cfg))(s)
+        _, idx_full, _ = rasterize_pallas(
+            full_rec, full_st, None, full_tris,
+            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x, emit_z=False,
+            interpret=True,
+        )
+        win = dataclasses.replace(cfg, height=2 * cfg.tile_h)
+        for off in (0, 3, cfg.tiles_y - 2):
+            rec, tris, st, _ = jax.jit(
+                lambda s, o=off: bin_triangles(s, win, row_tile_offset=o))(s)
+            _, idx_w, _ = rasterize_pallas(
+                rec, st, jnp.full((1,), off, jnp.int32), tris,
+                tile_h=win.tile_h, tile_w=win.tile_w,
+                tiles_y=win.tiles_y, tiles_x=win.tiles_x, emit_z=False,
+                interpret=True,
             )
-            return np.asarray(z), np.asarray(idx)
-
-        z32, i32_ = run16("int32")
-        z16, i16_ = run16("int16")
-        assert i16_.dtype == np.int16
-        np.testing.assert_array_equal(z32, z16)
-        np.testing.assert_array_equal(i32_, i16_.astype(np.int32))
+            rows = slice(off * cfg.tile_h, (off + 2) * cfg.tile_h)
+            np.testing.assert_array_equal(
+                np.asarray(idx_w), np.asarray(idx_full)[rows])
 
 
 class TestOverflowFlags:
@@ -347,21 +342,20 @@ class TestOverflowFlags:
         """Tightening max_span_y/x is a pure sort-grid shrink: as long as no
         triangle's real span exceeds the caps (overflow False), the frame is
         bit-identical.  This pins the mechanism behind tightening the span
-        defaults to the workload's exhaustively-measured worst spans
-        (BASELINE.md round-3 span study: 4x2 tiles at 800x800, 5x3 at 1200)."""
+        defaults to the workload's worst spans (SPAN_TUNED_BY_RESOLUTION)."""
         import dataclasses
 
-        from tiny_renderer_tpu import load_model
+        from tiny_renderer_tpu.models import seeded_model
         from tiny_renderer_tpu.pipelines.frame import make_frame_fn
 
-        model = load_model("/root/reference/assets/diablo", verbose=False)
+        model = seeded_model("diablo")
         m = model.mesh
         geom = {k: jnp.asarray(getattr(m, k)) for k in
                 ("positions", "tex_coords", "normals", "pos_idx", "tex_idx",
                  "normal_idx")}
         tex = {"texture": jnp.asarray(model.texture)}
-        # 160x160, tile 32x128: spans scale with resolution (worst bbox at
-        # 800 is 78x100 px -> ~16x20 px here), so (2, 2) cannot clamp.
+        # 160x160, tile 16x64: spans scale with resolution (worst bbox at
+        # 800 is under 80x100 px -> ~16x20 px here), so (2, 2) cannot clamp.
         base = RenderConfig(width=160, height=160, strip_batch=32)
         tight = dataclasses.replace(base, max_span_y=2, max_span_x=2)
         la = jnp.zeros(3, jnp.float32)
@@ -379,19 +373,27 @@ class TestOverflowFlags:
                 np.testing.assert_array_equal(
                     np.asarray(a["frame"]), np.asarray(b["frame"]))
 
-    def test_scene_overflow_property(self, head_model=None):
-        from tiny_renderer_tpu import Scene, load_model
-        model = load_model("/root/reference/assets/african_head", verbose=False)
+    def test_scene_overflow_property(self, head_model):
+        from tiny_renderer_tpu import Scene
         cfg = RenderConfig(width=96, height=96, tri_block=32)
-        scene = Scene(model, "default", cfg, backend="jnp")
+        scene = Scene(head_model, "default", cfg, backend="jnp")
         scene.render()
         assert scene.overflowed is False
 
 
 class TestConfigValidation:
-    def test_bad_tile_w(self):
-        with pytest.raises(ValueError, match="tile_w"):
-            RenderConfig(tile_w=100)
+    @pytest.mark.parametrize("knob,value", [
+        ("tile_w", 100), ("tile_w", 0), ("tile_h", 24), ("tile_h", -8),
+    ])
+    def test_bad_tile_w(self, knob, value):
+        """Tiles are kernel blocks: each side must be a power of two."""
+        with pytest.raises(ValueError, match=f"{knob} must be a power of two"):
+            RenderConfig(**{knob: value})
+
+    @pytest.mark.parametrize("th,tw", [(1, 1), (4, 256), (16, 64), (64, 32)])
+    def test_power_of_two_tiles_accepted(self, th, tw):
+        cfg = RenderConfig(width=800, height=800, tile_h=th, tile_w=tw)
+        assert cfg.tiles_x * tw >= 800 and cfg.tiles_y * th >= 800
 
     def test_bad_size(self):
         with pytest.raises(ValueError, match="frame size"):

@@ -1,8 +1,8 @@
-"""tiny_renderer_tpu — a TPU-native (JAX/XLA/Pallas) rasterization framework.
+"""tiny_renderer_tpu — a JAX/XLA/Pallas rasterization framework for the GPU.
 
 A ground-up rebuild of the capabilities of litzendraht/tiny_renderer
-(a single-threaded Rust CPU software rasterizer, see /root/reference) as a
-TPU-first framework:
+(a single-threaded Rust CPU software rasterizer) as a data-parallel
+framework:
 
 * asset layer: OBJ parser + TGA (RLE) decoder with `image`-crate-equivalent
   semantics (reference: src/app.rs:87-131), NumPy and native C++ backends.
@@ -15,8 +15,9 @@ TPU-first framework:
 * raster core: a tile-binned rasterizer with a deterministic, bit-stable
   lexicographic (max z, min triangle index) depth resolve reproducing the
   reference's serial depth-test semantics (src/scene/shader.rs:169-180),
-  in two interchangeable implementations: pure-jnp (reference) and a Pallas
-  TPU kernel (fast path).
+  in two interchangeable implementations: pure-jnp (reference, the CPU
+  path) and a Pallas kernel compiled through Triton for the GPU (fast
+  path).
 * shading: the 7 shader pipelines (src/scene/shader.rs:100-109) as pure,
   vectorized per-pixel functions over a G-buffer; two-pass pipelines
   (shadow, occlusion) run entirely inside one jit-compiled frame function.
@@ -33,8 +34,9 @@ frame out.
 import jax
 
 # The renderer's matrix stack and attribute interpolation are f32 and must not
-# silently drop to bf16 on the MXU; raster throughput comes from the VPU/Pallas
-# path, not from large matmuls, so full-precision matmuls cost nothing here.
+# silently drop to a reduced-precision matmul (bf16, or TF32 on the GPU);
+# raster throughput comes from the Pallas kernel, not from large matmuls, so
+# full-precision matmuls cost nothing here.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 from .config import RenderConfig  # noqa: E402

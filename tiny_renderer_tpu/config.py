@@ -42,132 +42,69 @@ class RenderConfig:
     # Collapse duplicate shadow-map indices in the occlusion probe's
     # 17-sample gather before fetching (pipelines.shaders.dedup_gather) —
     # exact by construction (equal indices fetch equal values; plain-gather
-    # fallback if a batch exceeds the unique cap).  Measured duplication is
-    # 16-26x per strip batch; whether the sort+permutation overhead beats
-    # the saved gather rows is hardware-dependent (knob_sweep).
+    # fallback if a batch exceeds the unique cap).  Whether the
+    # sort+permutation overhead beats the saved gather rows is
+    # hardware-dependent; default off.
     occlusion_dedup: bool = False
 
-    # Raster tiling (TPU-side knobs; no reference equivalent — the reference
-    # scans each triangle's bounding box serially, src/scene.rs:240-241).
-    # Hardened round-3 sweep (scripts/knob_sweep3.py, medians over 4
-    # interleaved reps): tile_h 32 4.899 ms, 16 5.066, 8 5.448 — the
-    # ~1 us/grid-step fixed cost dominates, so fewer/taller tiles win;
-    # (32, 256) gives the step count back to wasted per-candidate VPU
-    # width (5.054) and 16x256 sits between (5.006).  Round-4d closed the
-    # taller direction: tile_h 48 +0.03, 64 +0.13 ms vs 32 (and 64+t16
-    # +0.12 vs 32+t16) — per-tile candidate lists grow superlinearly past
-    # 32 rows, so 32 is the measured optimum (docs/live_window_r4d.log).
-    tile_h: int = 32
-    tile_w: int = 128
+    # Raster tiling (no reference equivalent — the reference scans each
+    # triangle's bounding box serially, src/scene.rs:240-241).  One raster
+    # kernel program per tile_h x tile_w tile; both powers of two (Triton
+    # blocks).  16 x 64 gives 650 programs at 800x800.
+    tile_h: int = 16
+    tile_w: int = 64
     # Compact real incidences before the binning sort (T-sized per-
-    # triangle prefix + monotone scatter; the sort then runs on ~4T keys
-    # instead of the 32T candidate grid).  Measured SLOWER on the dev
-    # chip (interleaved same-state reps: 6.76 vs 4.9-5.1 ms headline —
-    # the 32T-element scatter costs far more than the 8x-smaller sort
-    # saves); default False keeps the full-grid sort.
+    # triangle prefix + monotone scatter; the sort then runs on ~8T keys
+    # instead of the full candidate grid).  Default False keeps the
+    # full-grid sort.  Bit-identical either way.
     binning_compact: bool = False
     # Indirect CSR records: the kernel receives the compact (T, lanes)
     # per-triangle record table plus the (cap,) sorted triangle-id list
-    # (SMEM scalar prefetch) and indirects rec[tris[k]] inside the loop,
-    # instead of a pre-gathered (cap, lanes) CSR array.  Skips the cap-row
-    # record gather in binning and cuts the records' HBM write+DMA ~4x for
-    # one extra SMEM scalar load per record.  Bit-identical (tests pin
-    # it); measured -0.07 ms headline (hardened same-process sweep,
-    # medians 5.054 vs 5.124, spreads 0.03) -> default True.  The id list
-    # must fit the kernel's SMEM scalar-prefetch budget: above
-    # binning.SMEM_ID_LIST_BUDGET_BYTES (768 KB ~= 196k incidences ~= 49k
-    # triangles at the default 4T cap) bin_triangles transparently falls
-    # back to the gathered-record layout — the 80k-triangle capacity
-    # config fails TPU AOT compile otherwise (round-5 live window).
+    # and indirects rec[tris[k]] inside the loop, instead of a
+    # pre-gathered (cap, lanes) CSR array.  Skips the cap-row record
+    # gather in binning.  Bit-identical (tests pin it).
     csr_indirect: bool = True
-    # Emit the per-strip coverage plane (max winning index per strip_len-px
-    # strip) from the raster kernel, so the strip shade reads a (H, W/SL)
-    # plane instead of re-reading the full idx plane to find covered
-    # strips.  Requires width % strip_len == 0 and tile_w % strip_len == 0
-    # (silently unused otherwise).  Measured +0.06 ms headline (the
-    # transpose + extra output outweigh the saved read — the idx-plane
-    # coverage read was NOT on the critical path) -> default False; knob
-    # kept bit-identity-pinned for bandwidth-bound hardware.
-    strip_mask: bool = False
     # Global cap on (tile, triangle) incidences in the CSR binning; None =
-    # max(4*T, 4096) — generous vs the typical ~1.3 incidences/triangle.
+    # max(8*T, 4096) — generous vs the 2-3 incidences/triangle of the
+    # reference-shaped scenes at 16 x 64 tiles.
     # Overflow (flagged) drops the tail of the incidence generation order
     # (triangle-major) deterministically.
     max_incidences: int | None = None
     # Max tile span of one triangle's bbox (rows x cols of tiles); coverage
-    # beyond is dropped deterministically.  Defaults allow a 128 x 512 px
+    # beyond is dropped deterministically.  Defaults allow a 256 x 512 px
     # bbox — far beyond anything the reference scenes produce.
-    max_span_y: int = 8
-    max_span_x: int = 4
+    max_span_y: int = 16
+    max_span_x: int = 8
     # Triangle-block size for the pure-jnp raster path.  Each scan step
     # materializes (tri_block, H, W) intermediates — keep modest.
     tri_block: int = 64
-    # Triangles per depth-loop iteration in the Pallas kernel: the VMEM
-    # scalar record reads dominate that loop and grouping pipelines them.
-    # The ascending-index candidate merge keeps the tie rule exact at any
-    # group.  Headline sweep on the dev chip (scripts/knob_sweep.py):
-    # 4-wide 5.40 ms, 8-wide 5.12, 16-wide 4.99; flat beyond (32-wide
-    # re-measured neutral in the round-3 hardened sweep).
-    raster_group: int = 16
-    # Fuse the two-pass pipelines' rasters (shadow depth + camera idx)
-    # into ONE pallas_call: each grid step runs both passes' CSR loops on
-    # its tile, halving the grid-step count.  Measured NEUTRAL on the dev
-    # chip (hardened sweep: 4.902 fused vs 4.904 unfused; occlusion
-    # 22.83 vs 22.80) — the tile-size gains (t8->t32) trace to output-DMA
-    # granularity, which fusion does not change, not to per-step
-    # bookkeeping.  Default off (simpler one-pass kernels); knob kept
-    # bit-identity-pinned for hardware where step bookkeeping matters.
-    fuse_passes: bool = False
-    # Emit the winning-triangle-index target as int16 (requires < 32768
-    # triangles and tile_h % 16 == 0 — the i16 sublane tile).  Measured
-    # SLOWER on the dev chip twice: +0.2 ms in round 2 (per-iteration i16
-    # selects) and +0.13 ms in round 3 even with the i32-scratch late-cast
-    # form (one astype+store per tile) — the halved target bytes simply
-    # don't matter on the critical path.  Kept as a knob (bit-identical;
-    # tests pin it) for bandwidth-rich hardware.
-    idx_int16: bool = False
     # Strip shade writeback: True packs RGB into one i32 word per pixel
     # (scatter + unpack pass); False scatters (SL, 3) u8 rows directly.
-    # Direct u8 scatter measured SLOWER (+0.14 ms): the sub-word scatter
-    # penalty exceeds the word intermediate's write+read.
+    # Bit-identical either way.
     strip_pack_words: bool = True
     # Strip-compacted shading (kernel backends): per-pixel gathers run only
-    # on covered strip_len-px strips, in batches of strip_batch strips gated by
-    # the covered-strip count (see frame._shade_strips).  Strips beat exact
-    # per-pixel compaction on hardware: (batch, 128)-shaped gathers/
-    # scatters vectorize on the 128-lane VPU where flat 1-D forms do not
-    # (measured 7.9 vs 9.9 ms headline).  compact_shade False restores the
-    # full-screen varying-plane shade.
+    # on covered strip_len-px strips, in batches of strip_batch strips gated
+    # by the covered-strip count (see frame._shade_strips).  compact_shade
+    # False restores the full-screen varying-plane shade.
     compact_shade: bool = True
     strip_batch: int = 512
     # Hybrid strip shade: the raster kernel interpolates the pipeline's
     # varyings (kernel_varying_spec — texel-index / intensity / zfrag
     # planes) and the strip shade gathers those planes at STRIP granularity
     # instead of gathering per-triangle attributes per FRAGMENT
-    # (_gather_fragments).  Replaces strip_len gather rows per covered
-    # strip with n_planes (1-3) rows: ~25% fewer shade gather rows for
-    # shadow at SL=16, paid for with the kernel's phase-2 interpolation
-    # loop and the varying planes' HBM writes.  Measured SLOWER on the dev
-    # chip (healthy state, 7.1 ns/row, median-of-4x5 interleaved): shadow
-    # 4.88 -> 5.22, phong 3.07 -> 3.28, occlusion 22.83 -> 23.17 ms — the
-    # kernel's per-grid-step vary phase + plane DMA outweigh the saved
-    # rows, consistent with the ~1 us/grid-step OUTPUT-DMA cost model.
-    # Kept default-off, bit-identity-pinned (tests/test_strip_planes.py:
-    # kernel interpolation and compute_varyings share the exact-division
-    # barycentric expressions) for hardware where gather rows cost more
-    # relative to DMA.  Inapplicable (falls back to the attribute gather)
-    # for pipelines with per-triangle "const" varyings (darboux) where the
-    # const fetch is per-fragment either way.
+    # (_gather_fragments): n_planes (1-3) gather rows per covered strip
+    # instead of strip_len, paid for with the kernel's phase-2
+    # interpolation loop and the varying planes' writes.  Default off;
+    # bit-identity-pinned on the CPU (tests/test_strip_planes.py: kernel
+    # interpolation and compute_varyings share the exact-division
+    # barycentric expressions).  Inapplicable (falls back to the attribute
+    # gather) for pipelines with per-triangle "const" varyings (darboux)
+    # where the const fetch is per-fragment either way.
     strip_planes: bool = False
     # Strip length in pixels.  Shorter strips track coverage tighter (fewer
-    # wasted gather rows: diablo shadow covers 18% of pixels but 22% of
-    # 16-px strips vs 39% of 128-px strips); shade math is reshaped to
-    # 128-lane rows so any SL keeps the VPU full.  strip_batch * strip_len
-    # must be a multiple of 128.  Measured on the dev chip (shadow
-    # headline): SL=16 5.56 ms, SL=32 5.62, SL=128 7.57.  Exact per-PIXEL
-    # compaction was measured SLOWER than strips even with (rows, 128)-
-    # shaped batches (shadow 8.9, phong 7.4 ms): the 640k compaction +
-    # per-pixel idx gather + word scatter outweigh the row savings.
+    # wasted gather rows); shade math is reshaped to 128-wide rows so any SL
+    # keeps the vector width.  strip_batch * strip_len must be a multiple
+    # of 128.
     strip_len: int = 16
 
     # Shard the TRIANGLE axis of the vertex stage across the "rows" mesh
@@ -180,28 +117,11 @@ class RenderConfig:
     # reference scenes (2.5-5k triangles) are far below the crossover.
     shard_triangles: bool = False
 
-    # Raster row-band composition for capacity-scale scenes.  0 = auto:
-    # 1 band (the certified single-pass layout) whenever the CSR id list
-    # fits the kernel's SMEM scalar-prefetch budget or the gathered
-    # record window fits the VMEM budget; otherwise the frame's tile rows
-    # are rasterized in R disjoint bands — per-band binning windows
-    # (row_tile_offset, the same mechanism the row-sharded path uses)
-    # with proportionally smaller incidence caps that restore the
-    # indirect layout.  Bit-identical to 1 band by construction (a tile's
-    # triangle list never depends on other tile rows; pinned by tests).
-    # The round-5 live window showed both walls on the 80k/321k-triangle
-    # stress configs: 1.26 MB id list > 1 MB SMEM, and the gathered
-    # fallback's 164 MB record window > 128 MB VMEM.  N >= 1 forces N.
-    # Applies to the single-device kernel raster (pipelines.frame); the
-    # row-sharded path already windows by shard and relies on the
-    # gathered-layout fallback beyond the id-list budget.
-    row_bands: int = 0
-
     # Row-sharded two-pass rendering: rasterize the light-view depth pass
     # at FULL height on every device instead of per-shard + all_gather.
-    # Trades the shadow map's ICI collective (H x W x 4 bytes over "rows")
-    # for n x redundant pass-1 raster FLOPs — the right side of the trade
-    # depends on the chip's ICI bandwidth vs raster cost, so it ships as a
+    # Trades the shadow map's collective (H x W x 4 bytes over "rows")
+    # for n x redundant pass-1 raster work — the right side of the trade
+    # depends on the interconnect vs raster cost, so it ships as a
     # measurable knob (bit-identical either way: the full-height raster IS
     # the single-device pass 1).  Ignored off the sharded paths.
     replicate_pass1: bool = False
@@ -209,29 +129,26 @@ class RenderConfig:
     # Tile-swizzle the packed texture plane (and the kernel's texel-index
     # plane) into tex_tile x tex_tile blocks so uv-adjacent texels are
     # contiguous in the gather table.  A pure permutation — output is
-    # bit-identical (tests pin it) — targeting the shade's access-locality
-    # gap: the scaling model measured diablo's effective gather cost at
-    # 9.9 ns/row vs the microprobe's 7.3 and head's 7.6 (BASELINE.md),
-    # the difference being index locality.  0 = row-major; a power of two
-    # that divides both texture dims applies (else row-major fallback).
+    # bit-identical (tests pin it) — targeting the shade's gather
+    # locality.  0 = row-major; a power of two that divides both texture
+    # dims applies (else row-major fallback).
     tex_tile: int = 0
 
     # Tile-swizzle the shade's copy of the pass-1 shadow map the same way
     # (one elementwise relayout per frame; shadow_flat_indices transforms
     # the fetch indices AFTER the reference's flat saturate+clamp, so the
     # fetch is a pure permutation — bit-identical, tests pin it).  Targets
-    # the shadow compare (1 of the shadow pipeline's ~3 rows/fragment) and
-    # especially occlusion's 17-probe loop, whose sample coords cluster
-    # 2D-locally but scatter across up to 294 row-major columns at oblique
-    # angles (scripts/occlusion_locality.py).  Same power-of-two contract
-    # as tex_tile; 0 = row-major.
+    # the shadow compare and occlusion's 17-probe loop, whose sample
+    # coords cluster 2D-locally but scatter across many row-major columns
+    # at oblique angles.  Same power-of-two contract as tex_tile; 0 =
+    # row-major.
     shadow_tile: int = 0
 
     # Camera/light orbit speeds in rad/s (src/app.rs:12-13).
     camera_speed: float = 3.0
     light_speed: float = 3.0
 
-    # Apply hardware-measured per-pipeline tuned defaults at render entry
+    # Apply the per-pipeline tuned defaults at render entry
     # (resolve_for_pipeline): a tuning group is applied only when EVERY
     # field in it still sits at its class default, so explicit non-default
     # settings always win.  Set False for raw-knob experiments (sweeps
@@ -242,10 +159,13 @@ class RenderConfig:
     def __post_init__(self):
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"invalid frame size {self.width}x{self.height}")
-        if self.tile_w % 128 != 0 or self.tile_w < 128:
-            raise ValueError(f"tile_w must be a positive multiple of 128 (TPU lane width), got {self.tile_w}")
-        if self.tile_h % 8 != 0 or self.tile_h < 8:
-            raise ValueError(f"tile_h must be a positive multiple of 8 (f32 sublanes), got {self.tile_h}")
+        for knob in ("tile_h", "tile_w"):
+            v = getattr(self, knob)
+            if v < 1 or (v & (v - 1)) != 0:
+                raise ValueError(
+                    f"{knob} must be a power of two (a raster kernel block), "
+                    f"got {v}"
+                )
         if self.max_span_y < 1 or self.max_span_x < 1:
             raise ValueError("binning span caps must be >= 1")
         if self.max_incidences is not None and self.max_incidences < 8:
@@ -254,10 +174,6 @@ class RenderConfig:
             raise ValueError("occlusion_samples must be >= 1")
         if self.strip_batch < 1:
             raise ValueError("strip_batch must be >= 1")
-        if self.raster_group < 1:
-            raise ValueError("raster_group must be >= 1")
-        if self.row_bands < 0:
-            raise ValueError("row_bands must be 0 (auto) or >= 1")
         if self.strip_len < 1 or (self.strip_batch * self.strip_len) % 128 != 0:
             raise ValueError(
                 "strip_len must be >= 1 with strip_batch * strip_len a "
@@ -295,34 +211,20 @@ class RenderConfig:
         return self.tiles_x * self.tiles_y
 
 
-# Per-pipeline tuned defaults, each an atomic group, measured on hardware
-# by the round-4 interleaved knob sweep (BASELINE.md "Round 4"; protocol:
-# median of 4 interleaved reps, 5 marginals each, parity-guarded):
+# Per-pipeline tuned defaults, each an atomic group.  Layout choices only:
+# output is bit-identical either way (tests pin it).  They were chosen by
+# measurement on earlier hardware and are not yet measured on the current
+# GPU.
 #
-# * shadow tex_tile=16: -0.29 ms headline (4.890 -> 4.602) — the texture
-#   word is 1 of the pipeline's ~3 gather rows/fragment and the swizzle
-#   halves its unique-512B-segment count.  NOT applied globally: the same
-#   knob measured +0.09 ms on specular (2.726 -> 2.812), whose three
-#   texture-class fetches see more index-arithmetic cost than locality
-#   gain on this chip.
+# * tex_tile=16 on the texture-sampling pipelines except specular, whose
+#   three texture-class fetches pay more index arithmetic than the
+#   locality saves.
 # * occlusion strip_len=8 + strip_batch=1024 (constant 8192 fragments per
-#   shade step): -0.45 ms (22.823 -> 22.372) — SL8's 7.4% strip waste vs
-#   SL16's 15.1% cuts the 17-probe loop's wasted fragments.  NOT applied
-#   to shadow: plain SL8 and SL8b1k both measured ~+0.53 there (the
-#   1-3-gather pipelines lose more to extra loop iterations than waste
-#   saves).  shadow_tile measured negative everywhere (s16 +0.06 shadow,
-#   +0.1 occlusion) and stays a knob.
+#   shade step): SL8's lower strip waste cuts the 17-probe loop's wasted
+#   fragments.
 PIPELINE_TUNED_DEFAULTS: dict = {
     "shadow": {"tex_tile": 16},
-    # r4b: phong t16 median 2.835 vs t0 3.097 (-0.26; rep0 was a +0.15
-    # excursion, reps 1-3 all won).
     "phong": {"tex_tile": 16},
-    # r4c per-pipeline sweep (median of 4 interleaved reps, both assets
-    # for default): default -0.29 diablo / -0.46 head, normal_map -0.12,
-    # darboux -0.14 — every rep won on every one (no excursions).
-    # specular stays unflipped: the only measured NEGATIVE (+0.09, r4a);
-    # its three texture-class fetches pay more index arithmetic than the
-    # locality saves on this chip.
     "default": {"tex_tile": 16},
     "normal_map": {"tex_tile": 16},
     "darboux": {"tex_tile": 16},
@@ -331,23 +233,16 @@ PIPELINE_TUNED_DEFAULTS: dict = {
 
 # Resolution-conditional span-grid tuned defaults (PIPELINE-INDEPENDENT —
 # the span caps size the binning stage's candidate grid, which every
-# pipeline shares).  The 8x4 class default allows a 128x512 px bbox; the
-# worst REAL spans under the app's full orbit parameterization are far
-# smaller (exhaustive 720-angle sweep over both passes and both reference
-# assets at the DEFAULT projection, BASELINE.md round-3 span study):
-# 4x2 tiles at <=800px, 5x3 at <=1200.  The round-4b hardware sweep
-# measured the shrink -0.27 ms (4x2) / -0.21 ms (5x3) on the shadow
-# headline and -0.17 ms (5x3) on phong — the fitted binning law
-# (1.82 ns x sort elements) at ~2/3 magnitude.  Applied only while
-# max_span_y, max_span_x AND projection_coef all sit at class defaults
-# (the measured envelope assumed the default projection; a custom
-# projection changes bbox sizes, so it opts out).  Scenes that exceed
-# the caps keep the existing contract: deterministic flagged drop
-# (Scene.overflowed) — same as with the 8x4 default, which a
-# screen-filling triangle already exceeds.
+# pipeline shares).  The class default allows a 256x512 px bbox; the
+# worst real spans under the app's full orbit parameterization are far
+# smaller, so the grid shrinks to 128x256 px at <=800 px frames and
+# 160x384 px at <=1200.  Applied only while max_span_y, max_span_x AND
+# projection_coef all sit at class defaults (a custom projection changes
+# bbox sizes, so it opts out).  Scenes that exceed the caps keep the
+# existing contract: deterministic flagged drop (Scene.overflowed).
 SPAN_TUNED_BY_RESOLUTION: tuple = (
-    (800, {"max_span_y": 4, "max_span_x": 2}),
-    (1200, {"max_span_y": 5, "max_span_x": 3}),
+    (800, {"max_span_y": 8, "max_span_x": 4}),
+    (1200, {"max_span_y": 10, "max_span_x": 6}),
 )
 
 

@@ -1,7 +1,7 @@
 """Screen-tile triangle binning for the Pallas raster kernel.
 
 The reference bounds raster work per triangle with a bbox scan
-(src/scene.rs:233-241); the TPU analog is tiling: the screen is cut into
+(src/scene.rs:233-241); the data-parallel analog is tiling: the screen is cut into
 (tile_h x tile_w) tiles and each triangle is binned into every tile its
 screen-clamped bbox overlaps.  The Pallas kernel then only evaluates
 (tile, triangle) pairs that can actually produce coverage — the blockwise
@@ -11,18 +11,16 @@ Strategy: incidence-key sort into a CSR list.  Each triangle contributes
 up to max_span_y * max_span_x (tile, triangle) incidences; the packed keys
 `tile_id * K + tri_id` of the full candidate grid are sorted in one
 (T * span,) sort, per-tile ranges are recovered with searchsorted, and the
-records are gathered ONCE into (tile, triangle)-sorted CSR order — the
-raster kernel keeps the flat array resident in VMEM and walks each tile's
-[starts[t], starts[t+1]) slice.  (config.binning_compact instead compacts
-the ~1.3 real incidences/triangle before an 8x-smaller sort — measured
-~1.8 ms SLOWER on the dev chip, where the 32T-element scatter dwarfs the
-sort savings; kept as a knob for other hardware.)  Per-tile list length is unbounded (dense
+records are gathered ONCE into (tile, triangle)-sorted CSR order — each
+raster-kernel program walks its tile's [starts[t], starts[t+1]) slice.
+(config.binning_compact instead compacts the 2-3 real
+incidences/triangle before a smaller sort.)  Per-tile list length is unbounded (dense
 regions just own longer slices), which removed the per-tile-capacity
 overflow class entirely; the only caps are:
 
-* bbox span clamped to max_span_y x max_span_x tiles (default 8 x 4 =
-  128 x 512 px) — triangles larger than that lose coverage beyond the cap;
-* the global incidence cap (default 4x triangle count vs a typical ~1.3x);
+* bbox span clamped to max_span_y x max_span_x tiles (default 16 x 8 =
+  256 x 512 px) — triangles larger than that lose coverage beyond the cap;
+* the global incidence cap (default 8x triangle count vs a typical 2-3x);
   on overflow the tail is dropped in generation (triangle-major) order.
 
 Both deterministic, both far above the reference scenes, both reported via
@@ -54,14 +52,12 @@ def compact_scatter(mask, values, out_len, fill):
     """Front-compact values[mask] into an (out_len,) array, fill elsewhere.
 
     The cheap deterministic compaction idiom this codebase standardizes
-    on (a flat cumsum is ~free and the scatter positions are monotone, so
-    the scatter engine runs at near-sequential bandwidth — ~13x cheaper
-    than jnp.nonzero at 640k on the dev chip).  Entries beyond out_len
-    (mask count overflow) are dropped deterministically in input order.
-    Used by the strip-shade covered-strip compaction; the binning
-    incidence compaction uses the same scatter but derives positions from
-    a T-sized per-triangle prefix (a full-grid cumsum measured ~0.85
-    ms/pass on the dev chip).
+    on (a flat cumsum and a scatter to monotone positions, instead of
+    jnp.nonzero).  Entries beyond out_len (mask count overflow) are
+    dropped deterministically in input order.  Used by the strip-shade
+    covered-strip compaction; the binning incidence compaction uses the
+    same scatter but derives positions from a T-sized per-triangle
+    prefix.
     """
     pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
     tgt = jnp.where(mask, pos, out_len)
@@ -125,40 +121,14 @@ def pack_triangle_records(setup, spec=(), xp=jnp):
 
 
 def incidence_cap(T: int, config) -> int:
-    """Static CSR capacity: generous vs the typical ~1.3 incidences/triangle."""
+    """Static CSR capacity: generous vs the 2-3 incidences/triangle of the
+    reference-shaped scenes at the default 16 x 64 tiles."""
     if config.max_incidences is not None:
         cap = config.max_incidences
     else:
-        cap = max(4 * T, 4096)
+        cap = max(8 * T, 4096)
     cap = min(cap, T * config.max_span_y * config.max_span_x)
     return _round_up(cap, 8)
-
-
-# The Pallas kernel indirects through the sorted id list as a
-# scalar-prefetch operand, which lives in SMEM (~1 MB/core on v5e).
-# Beyond this budget the TPU AOT compile fails outright — observed on the
-# 80k-triangle capacity config (cap=321,536 ids: "Allocation
-# (size=1286144) would exceed memory (size=1048576) ... space=smem,
-# 'prefetched SMEM operand 2'", round-5 live window).  768 KB leaves
-# headroom for the other SMEM operands (the per-tile `starts` offsets and
-# the row_tile_offset scalar, a few KB at any real resolution).  Above it
-# bin_triangles silently returns the gathered-record layout instead
-# (csr_indirect=False shape): bit-identical pixels, ~4x the record
-# HBM->VMEM traffic — correctness over the layout optimization.
-SMEM_ID_LIST_BUDGET_BYTES = 768 * 1024
-
-# The record array (gathered mode: (cap, lanes); indirect mode:
-# (T, lanes)) is resident in VMEM for the raster kernel's whole grid,
-# and VMEM pads the lane (last) dimension to 128 — a (N, 16) f32 window
-# occupies N x 128 x 4 = N x VMEM_RECORD_ROW_BYTES bytes, NOT N x 64
-# (the round-5 window's failure arithmetic confirms it: the (321408, 16)
-# gathered window allocated exactly 321408 x 512 = 164,560,896 bytes
-# against the 128 MB VMEM).  Past this budget the TPU AOT compile fails.
-# bin_triangles keeps the indirect layout only while the (T, lanes)
-# table fits; pipelines.frame uses the same budget to pick the row-band
-# count for capacity-scale scenes.
-VMEM_RECORD_ROW_BYTES = 128 * 4
-VMEM_RECORDS_BUDGET_BYTES = 48 * 1024 * 1024
 
 
 def bin_triangles(setup, config, spec=(), row_tile_offset=0):
@@ -179,11 +149,8 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
         (tile, triangle) order, tris is None.  csr_indirect=True: the
         compact (T, record_lanes(spec)) per-triangle table; tris is the
         (incidence_cap,) i32 sorted triangle-id list the kernel indirects
-        through — this skips the cap-row record gather here and shrinks
-        the HBM->VMEM record traffic ~4x (cap defaults to 4T).  When the
-        id list would exceed SMEM_ID_LIST_BUDGET_BYTES (the kernel
-        prefetches it to SMEM), the gathered layout is returned instead
-        (tris=None) regardless of the knob — bit-identical pixels.
+        through — this skips the cap-row record gather here (cap defaults
+        to 8T).  Both layouts give bit-identical pixels.
       starts: (num_tiles + 1,) i32 — tile t owns slot range [starts[t],
         starts[t+1]) of the incidence list
       overflowed: () bool — a coverage cap was hit (span clamp, or total
@@ -234,12 +201,11 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     key = jnp.where(ok, tile * K + tri_ids[:, None, None], jnp.int32(2**31 - 1))
     okf = ok.reshape(-1)
     total = jnp.sum(okf, dtype=jnp.int32)
-    # Compact the ~1.3 real incidences/triangle out of the (T, msy, msx)
-    # candidate grid BEFORE sorting: the sort then runs on cap (~4T) keys
-    # instead of the full 32T grid (~8x smaller).  Scatter positions come
-    # from a T-sized exclusive cumsum of per-triangle incidence counts
-    # plus each slot's local rank — a full 32T-element cumsum measured
-    # ~0.85 ms/pass on the dev chip and erased the sort savings.  On cap
+    # Compact the 2-3 real incidences/triangle out of the (T, msy, msx)
+    # candidate grid BEFORE sorting: the sort then runs on cap (~8T) keys
+    # instead of the full candidate grid.  Scatter positions come from a
+    # T-sized exclusive cumsum of per-triangle incidence counts plus each
+    # slot's local rank, not a cumsum over the whole grid.  On cap
     # overflow the tail is dropped in generation order (triangle-major)
     # — deterministic, flagged via `overflowed`.
     if config.binning_compact:
@@ -274,8 +240,6 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     csr_tris = jnp.minimum(csr_tris, T - 1)  # sentinel slots -> harmless row
 
     records = pack_triangle_records(setup, spec, jnp)
-    if (config.csr_indirect
-            and cap * 4 <= SMEM_ID_LIST_BUDGET_BYTES
-            and T * VMEM_RECORD_ROW_BYTES <= VMEM_RECORDS_BUDGET_BYTES):
+    if config.csr_indirect:
         return records, csr_tris, starts, overflowed
     return records[csr_tris], None, starts, overflowed

@@ -1,7 +1,7 @@
 """Backend-agnostic (NumPy / jax.numpy) math mirroring the reference exactly.
 
 Every function takes an ``xp`` namespace argument (numpy or jax.numpy) so the
-CPU oracle and the TPU renderer share one implementation of the reference's
+CPU oracle and the device renderer share one implementation of the reference's
 math, keeping their results aligned to elementwise-IEEE-f32 accuracy.
 
 Reference semantics encoded here:

@@ -1,44 +1,27 @@
-"""Pallas TPU raster kernel — the performance path.
+"""Binned raster kernel for the GPU (Pallas, Triton route) — the fast path.
 
-Grid = screen tiles; each grid step owns one (tile_h x tile_w) tile of the
-z / index / varying targets in VMEM and loops over the triangles binned to
-that tile (ops/binning.py) in two phases:
+One program per screen tile, over grid (tiles_y, tiles_x).  Programs are
+independent: each starts its tile fresh, walks the triangles binned to it
+(ops/binning.py, the slice [starts[t], starts[t+1]) of the sorted CSR list)
+and stores its tile once.  Inside a program:
 
 * **Phase 1 — depth resolve**: per triangle, exact integer coverage tests
   (src/scene.rs:174-197 over integer raster coords; values < 2^24 held in
   f32) and a strict `z > best` update.  Triangles are visited in ascending
   global index order (binning sorts), so equal-z fragments keep the earliest
   triangle — exactly the serial reference's `z <= stored -> reject` rule
-  (shader.rs:169-180).  Deterministic and bit-stable.
-* **Phase 2 — varying interpolation**: per triangle, pixels it won
-  (idx == tri) get their varyings (uv, diffuse intensity, depth, Darboux
-  pieces — see pipelines.shaders.VARYING_SPECS) interpolated with the
-  reference's exact-division barycentrics.  This replaces the per-pixel
-  attribute *gathers* of classic deferred shading: the triangle's attributes
-  are scalars in registers here, so interpolation is a handful of broadcast
-  FMAs per plane — measured ~6x cheaper than gathering per pixel on TPU.
+  (shader.rs:169-180).  Deterministic and bit-stable.  The tile's z and
+  winning index stay in registers across the whole variable-length loop.
+* **Phase 2 — varying interpolation** (only when a varying spec is given):
+  per triangle, pixels it won get their varyings (uv, diffuse intensity,
+  depth, Darboux pieces — see pipelines.shaders.VARYING_SPECS) interpolated
+  with the reference's exact-division barycentrics.
 
-The triangle records are either a flat CSR array in (tile, triangle) order
-(csr mode) or — config.csr_indirect — a compact (T, lanes) per-triangle
-table plus the (cap,) sorted triangle-id list, indirected inside the
-kernel: tid = tris[k]; record = rec[tid].  Indirection skips the cap-row
-record gather in binning and shrinks the HBM->VMEM record traffic from
-O(cap * lanes) to O(T * lanes + cap) — on the dev chip's ~8 GB/s HBM that
-is the cheaper layout (one extra VMEM scalar load per record inside the
-loop).  Either array is resident in VMEM for the whole grid; each tile
-walks its [starts[t], starts[t+1]) slice, so per-tile triangle counts are
-unbounded.  The pixel-space evaluation is dense f32 VPU work with zero HBM
-traffic inside the loops.
-
-Optional outputs, each saving HBM traffic for a specific consumer:
-* emit_z=False: depth resolves in a VMEM scratch, the z target is never
-  written (strip-compacted shade consumes idx only).
-* emit_strips=SL: a per-SL-pixel-strip max-winning-index plane (H, W/SL)
-  — the strip shade's coverage mask — so _shade_strips never re-reads the
-  full idx plane just to find covered strips.
-* idx int16: the depth loop works in an i32 VMEM scratch and casts to the
-  i16 target ONCE per tile at the end, so the halved target bytes are not
-  paid for with per-iteration sub-word selects.
+The triangle table is either the compact (T, lanes) per-triangle record
+array indirected through the (cap,) sorted triangle-id list
+(config.csr_indirect), or the pre-gathered (cap, lanes) CSR array.  Both,
+and the (num_tiles + 1,) offsets, are passed whole and read with scalar
+loads; the flagship's records are a few hundred KB and stay in L2.
 """
 
 from __future__ import annotations
@@ -48,146 +31,68 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .binning import BASE_LANES
 from .mathlib import F32_MIN
 
+# Warps per program: 8 warps over a 16x64 tile give each thread 4 pixels.
+NUM_WARPS = 8
+
 
 def _plane_layout(spec):
-    """[(mode, record_lane, plane_index)] for each output plane of `spec`.
+    """[(mode, record_lane)] for each output plane of `spec`.
 
     mode "texidx:W:H" consumes 6 record lanes (uv per-vertex values) and
     produces one plane holding the flat texel index (exact integer in f32).
     """
     planes = []
     lane = BASE_LANES
-    p = 0
     for name, comps, mode in spec or ():
         if mode.startswith("texidx"):
-            planes.append((mode, lane, p))
+            planes.append((mode, lane))
             lane += 6
-            p += 1
             continue
         for _ in range(comps):
             if mode == "interp":
-                planes.append(("interp", lane, p))
+                planes.append(("interp", lane))
                 lane += 3
             elif mode == "const":
-                planes.append(("const", lane, p))
+                planes.append(("const", lane))
                 lane += 1
             else:  # zfrag — interpolates base z lanes 9..11
-                planes.append(("zfrag", 9, p))
-            p += 1
+                planes.append(("zfrag", 9))
     return planes
 
 
-def _depth_resolve(rec_ref, tris_ref, start, end, pxf, pyf, z_ref, idx_ref,
-                   group):
-    """The phase-1 depth loop over one tile's CSR slice [start, end).
-
-    Candidates are merged strictly in ascending global-index order, so the
-    reference tie rule (z <= stored -> reject; shader.rs:169-180) is exact
-    at any `group`.  idx_ref may be None (depth-only shadow pass).  Shared
-    by the single-pass and fused two-pass kernels.
-    """
-
-    def rec(k, lane):
-        if tris_ref is None:
-            return rec_ref[k, lane]
-        return rec_ref[tris_ref[k], lane]
-
-    n_rec = rec_ref.shape[0] if tris_ref is None else tris_ref.shape[0]
-
-    def tri_candidate(k):
-        a1 = rec(k, 0)
-        b1 = rec(k, 1)
-        c1 = rec(k, 2)
-        a2 = rec(k, 3)
-        b2 = rec(k, 4)
-        c2 = rec(k, 5)
-        cx = a1 * pxf + b1 * pyf + c1
-        cy = a2 * pxf + b2 * pyf + c2
-        sgn = rec(k, 6)
-        absz = rec(k, 7)
-        rcz = rec(k, 8)
-        z1 = rec(k, 9)
-        z2 = rec(k, 10)
-        z3 = rec(k, 11)
-        gidx = rec(k, 12)
-
-        cxs = cx * sgn
-        cys = cy * sgn
-        zero = jnp.float32(0.0)
-        inside = (cxs >= zero) & (cys >= zero) & (absz - cxs - cys >= zero)
-
-        u = cx * rcz
-        v = cy * rcz
-        w = jnp.float32(1.0) - (cx + cy) * rcz
-        zval = (w * z1 + u * z2) + v * z3
-        return inside, zval, gidx
-
-    def depth_group(i, _):
-        k0 = start + group * i
-        cands = []
-        for j in range(group):
-            k = jnp.minimum(k0 + j, n_rec - 1)
-            inside, zval, gidx = tri_candidate(k)
-            cands.append((inside & (k0 + j < end), zval, gidx))
-
-        z_cur = z_ref[:]
-        idx_cur = idx_ref[:] if idx_ref is not None else None
-        for inside, zval, gidx in cands:
-            win = inside & (zval > z_cur)
-            z_cur = jnp.where(win, zval, z_cur)
-            if idx_cur is not None:
-                idx_cur = jnp.where(
-                    win, jnp.int32(gidx).astype(idx_cur.dtype), idx_cur
-                )
-        z_ref[:] = z_cur
-        if idx_ref is not None:
-            idx_ref[:] = idx_cur
-        return 0
-
-    jax.lax.fori_loop(0, (end - start + group - 1) // group, depth_group, 0)
-
-
-def _tile_pixel_coords(tile_h, tile_w, ty, tx, row_off):
-    """f32 pixel coordinates (exact integers) of tile (ty, tx)."""
-    pxf = (
-        jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1) + tx * tile_w
-    ).astype(jnp.float32)
-    pyf = (
-        jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
-        + (ty + row_off) * tile_h
-    ).astype(jnp.float32)
-    return pxf, pyf
+def _div_rn(a, b, interpret):
+    """IEEE round-to-nearest f32 division.  On the card Triton lowers `/` to
+    the approximate div.full.f32; the varying planes must match
+    compute_varyings' exact division, so ask for div.rn.f32 directly."""
+    if interpret:
+        return a / b
+    b = jnp.broadcast_to(b, a.shape)
+    [out] = plgpu.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;",
+        args=[a, b],
+        constraints="=r,r,r",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(a.shape, a.dtype)],
+    )
+    return out
 
 
 def _raster_kernel(
-    starts_ref, row_off_ref, *rest,
-    tile_h, tile_w, tiles_x, spec, emit_idx, emit_z, emit_strips, group,
-    indirect, idx_i16,
+    starts_ref, row_off_ref, *refs,
+    tile_h, tile_w, tiles_x, spec, emit_idx, emit_z, indirect, interpret,
 ):
     planes = _plane_layout(spec)
-    rest = list(rest)
-    # Indirect mode: the sorted triangle-id list rides scalar prefetch
-    # (SMEM — dynamic scalar indexing is native there; a 1-D VMEM array
-    # cannot be dynamically indexed along its lane dim).
-    tris_ref = rest.pop(0) if indirect else None
-    rec_ref = rest.pop(0)
-    # Argument order after the inputs: outputs [z?][idx?][varys?][strips?],
-    # then scratch [z32?][idx32?] (z scratch when the z target is not
-    # emitted; i32 idx scratch when the idx target is int16 — the depth
-    # resolve always runs in VMEM at full width either way).
-    n_scratch = (0 if emit_z else 1) + (1 if idx_i16 else 0)
-    scratch = rest[len(rest) - n_scratch:] if n_scratch else []
-    outs = rest[: len(rest) - n_scratch]
-    z_ref = outs.pop(0) if emit_z else scratch.pop(0)
-    idx_ref = outs.pop(0) if emit_idx else None
-    vary_ref = outs.pop(0) if planes else None
-    strip_ref = outs.pop(0) if emit_strips else None
-    idx_work_ref = scratch.pop(0) if idx_i16 else idx_ref
+    refs = list(refs)
+    tris_ref = refs.pop(0) if indirect else None
+    rec_ref = refs.pop(0)
+    z_ref = refs.pop(0) if emit_z else None
+    idx_ref = refs.pop(0) if emit_idx else None
+    plane_refs = refs
 
     ty = pl.program_id(0)
     tx = pl.program_id(1)
@@ -196,14 +101,11 @@ def _raster_kernel(
     end = starts_ref[tile + 1]
     row_off = row_off_ref[0]  # global tile-row offset of this (row-sharded) grid
 
-    z_ref[:] = jnp.full((tile_h, tile_w), F32_MIN, jnp.float32)
-    if idx_work_ref is not None:
-        idx_work_ref[:] = jnp.full((tile_h, tile_w), -1, idx_work_ref.dtype)
-    if vary_ref is not None:
-        vary_ref[:] = jnp.zeros_like(vary_ref)
-
     # Pixel coordinates of this tile (f32 holding exact integers).
-    pxf, pyf = _tile_pixel_coords(tile_h, tile_w, ty, tx, row_off)
+    cols = jnp.arange(tile_w, dtype=jnp.int32)[None, :] + tx * tile_w
+    rows = jnp.arange(tile_h, dtype=jnp.int32)[:, None] + (ty + row_off) * tile_h
+    pxf = jnp.broadcast_to(cols, (tile_h, tile_w)).astype(jnp.float32)
+    pyf = jnp.broadcast_to(rows, (tile_h, tile_w)).astype(jnp.float32)
 
     def rec(k, lane):
         if tris_ref is None:
@@ -211,62 +113,53 @@ def _raster_kernel(
         return rec_ref[tris_ref[k], lane]
 
     def edge_functions(k):
-        a1 = rec(k, 0)
-        b1 = rec(k, 1)
-        c1 = rec(k, 2)
-        a2 = rec(k, 3)
-        b2 = rec(k, 4)
-        c2 = rec(k, 5)
-        cx = a1 * pxf + b1 * pyf + c1
-        cy = a2 * pxf + b2 * pyf + c2
+        cx = rec(k, 0) * pxf + rec(k, 1) * pyf + rec(k, 2)
+        cy = rec(k, 3) * pxf + rec(k, 4) * pyf + rec(k, 5)
         return cx, cy
 
-    # Phase 1 — depth resolve (`group` triangles per iteration: the ~12-
-    # cycle VMEM scalar record reads dominate the loop and grouping
-    # pipelines them; the merge is exact at any width).
-    _depth_resolve(
-        rec_ref, tris_ref, start, end, pxf, pyf, z_ref, idx_work_ref, group
-    )
+    # Phase 1 — depth resolve, z and idx carried in registers.
+    def depth_body(k, carry):
+        z_cur, idx_cur = carry
+        cx, cy = edge_functions(k)
+        sgn = rec(k, 6)
+        absz = rec(k, 7)
+        rcz = rec(k, 8)
+        cxs = cx * sgn
+        cys = cy * sgn
+        zero = jnp.float32(0.0)
+        inside = (cxs >= zero) & (cys >= zero) & (absz - cxs - cys >= zero)
+        u = cx * rcz
+        v = cy * rcz
+        w = jnp.float32(1.0) - (cx + cy) * rcz
+        zval = (w * rec(k, 9) + u * rec(k, 10)) + v * rec(k, 11)
+        win = inside & (zval > z_cur)
+        gidx = rec(k, 12).astype(jnp.int32)
+        return jnp.where(win, zval, z_cur), jnp.where(win, gidx, idx_cur)
 
-    if idx_i16 and idx_ref is not None:
-        # One cast+store per tile: the i16 target's halved HBM bytes without
-        # per-iteration sub-word selects (which measured +0.2 ms headline).
-        idx_ref[:] = idx_work_ref[:].astype(idx_ref.dtype)
-
-    if strip_ref is not None:
-        # Per-strip coverage: max winning index over each emit_strips-pixel
-        # lane group (>= 0 <=> covered).  Static unroll over the (few)
-        # strips per tile row; each is an axis-1 reduce of a (tile_h, SL)
-        # slab — tiny VPU work that saves the full idx-plane re-read the
-        # strip shade would otherwise do just to find covered strips.
-        # The output block is (1, tile_h, tile_w//SL) of a (tiles_x, H,
-        # tile_w//SL) array — Mosaic requires the last block dim to be 128
-        # or the full array dim, so the strip axis lives in its own minor
-        # dim and the caller transposes to (H, W//SL).
-        SL = emit_strips
-        idx32 = idx_work_ref[:]
-        cols = [
-            jnp.max(idx32[:, j * SL : (j + 1) * SL], axis=1, keepdims=True)
-            for j in range(tile_w // SL)
-        ]
-        strip_ref[0] = jnp.concatenate(cols, axis=1)
-
+    z0 = jnp.full((tile_h, tile_w), F32_MIN, jnp.float32)
+    i0 = jnp.full((tile_h, tile_w), -1, jnp.int32)
+    z, idx = jax.lax.fori_loop(start, end, depth_body, (z0, i0))
+    if z_ref is not None:
+        z_ref[...] = z
+    if idx_ref is not None:
+        idx_ref[...] = idx
     if not planes:
         return
 
-    def vary_body(k, _):
-        gidx = rec(k, 12)
-        mask = idx_work_ref[:] == jnp.int32(gidx).astype(idx_work_ref.dtype)
+    # Phase 2 — varying planes of the pixels each triangle won.
+    def vary_body(k, acc):
+        mask = idx == rec(k, 12).astype(jnp.int32)
         cx, cy = edge_functions(k)
         sgn = rec(k, 6)
         absz = rec(k, 7)
         # Exact-division barycentrics (scene.rs:192-196): cx/cz computed as
         # (cx*sgn)/|cz| — the sign flip is exact, so the rounding matches the
         # reference's single division by cz bit-for-bit.
-        u = (cx * sgn) / absz
-        v = (cy * sgn) / absz
-        w = jnp.float32(1.0) - ((cx + cy) * sgn) / absz
-        for mode, lane, p in planes:
+        u = _div_rn(cx * sgn, absz, interpret)
+        v = _div_rn(cy * sgn, absz, interpret)
+        w = jnp.float32(1.0) - _div_rn((cx + cy) * sgn, absz, interpret)
+        out = []
+        for (mode, lane), cur in zip(planes, acc):
             if mode == "const":
                 val = jnp.full((tile_h, tile_w), rec(k, lane))
             elif mode.startswith("texidx"):
@@ -290,37 +183,39 @@ def _raster_kernel(
                 cyp = jnp.minimum(jnp.trunc(jnp.maximum(yw, zero)), hdim - 1.0)
                 if swz:
                     # Tile-swizzled flat index; every op is exact in f32
-                    # (coords < 2^20, tile a power of two so the division
-                    # is exact and trunc recovers the integer quotient).
+                    # (coords < 2^20, and the tile is a power of two, so
+                    # multiplying by its reciprocal is exact and trunc
+                    # recovers the integer quotient).
                     fB = jnp.float32(swz)
-                    tx = jnp.trunc(cxp / fB)
-                    ty = jnp.trunc(cyp / fB)
-                    ix = cxp - tx * fB
-                    iy = cyp - ty * fB
+                    inv = jnp.float32(1.0 / swz)
+                    btx = jnp.trunc(cxp * inv)
+                    bty = jnp.trunc(cyp * inv)
+                    ix = cxp - btx * fB
+                    iy = cyp - bty * fB
                     ntx = jnp.float32(int(parts[1]) // swz)
-                    val = ((ty * ntx + tx) * fB + iy) * fB + ix
+                    val = ((bty * ntx + btx) * fB + iy) * fB + ix
                 else:
                     val = cyp * wdim + cxp
             else:  # interp / zfrag: (a0*w + a1*u) + a2*v
-                a0 = rec(k, lane)
-                a1 = rec(k, lane + 1)
-                a2 = rec(k, lane + 2)
-                val = (a0 * w + a1 * u) + a2 * v
-            vary_ref[p] = jnp.where(mask, val, vary_ref[p])
-        return 0
+                val = (rec(k, lane) * w + rec(k, lane + 1) * u) + rec(k, lane + 2) * v
+            out.append(jnp.where(mask, val, cur))
+        return tuple(out)
 
-    jax.lax.fori_loop(start, end, vary_body, 0)
+    zeros = tuple(jnp.zeros((tile_h, tile_w), jnp.float32) for _ in planes)
+    acc = jax.lax.fori_loop(start, end, vary_body, zeros)
+    for r, val in zip(plane_refs, acc):
+        r[...] = val
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "tile_h", "tile_w", "tiles_y", "tiles_x", "spec", "emit_idx", "emit_z",
-        "emit_strips", "group", "idx_dtype", "interpret",
+        "interpret",
     ),
 )
 def rasterize_pallas(
-    csr_records,
+    records,
     starts,
     row_tile_offset=None,
     csr_tris=None,
@@ -332,106 +227,57 @@ def rasterize_pallas(
     spec=(),
     emit_idx=True,
     emit_z=True,
-    emit_strips=0,
-    group=4,
-    idx_dtype="int32",
     interpret=False,
 ):
     """Run the raster kernel.
 
     Args:
-      csr_records: triangle records from bin_triangles, resident in VMEM for
-        the whole grid.  Without csr_tris: (incidence_cap, lanes) f32 in
-        (tile, triangle) CSR order.  With csr_tris (csr_indirect mode):
-        the compact (T, lanes) per-triangle table, indirected through
-        csr_tris inside the kernel.
-      starts: (num_tiles + 1,) i32 CSR offsets (scalar-prefetched to SMEM).
+      records: f32 triangle records from bin_triangles.  Without csr_tris:
+        the (incidence_cap, lanes) gathered array in (tile, triangle) CSR
+        order.  With csr_tris (csr_indirect): the compact (T, lanes)
+        per-triangle table, indirected through csr_tris inside the kernel.
+      starts: (num_tiles + 1,) i32 CSR offsets.
+      row_tile_offset: optional (1,) i32 global tile row of this grid's
+        first row (the row-sharded path); 0 when None.
       csr_tris: optional (incidence_cap,) i32 sorted triangle ids.
+      tile_h, tile_w: powers of two (Triton blocks).
       spec: pipelines.shaders.VARYING_SPECS entry (static).
       emit_idx: write the winning-triangle-index target.  Depth-only passes
-        (the shadow map, shader.rs:694-709) need only max z — skipping the
-        index output saves its full HBM write.
+        (the shadow map, shader.rs:694-709) need only max z.
       emit_z: write the depth target.  The strip-compacted shade consumes
-        idx only, so its camera pass skips the z write (the depth resolve
-        itself is unchanged — z lives in a VMEM scratch).
-      emit_strips: if nonzero, also emit the (H, W/emit_strips) per-strip
-        max-index plane (the strip shade's coverage input).  Requires
-        tile_w % emit_strips == 0.
-      group: triangles per depth-loop iteration (config.raster_group).
-      idx_dtype: "int32" or "int16" for the index target.  int16 halves the
-        target's HBM bytes and is exact for < 32768 triangles (the caller
-        checks; requires tile_h a multiple of 16, the i16 sublane tile).
-        The depth loop runs in an i32 scratch; the cast happens once per
-        tile at the final store.
+        idx only.
+      interpret: run the kernel body with the Pallas interpreter (CPU tests).
 
-    Returns (z, idx, varyings, strips) of spatial shape (tiles_y*tile_h,
+    Returns (z, idx, varyings) of spatial shape (tiles_y*tile_h,
     tiles_x*tile_w): winning depth (F32_MIN where uncovered; None if not
     emitted), winning triangle index (-1 where uncovered; None if not
-    emitted), the (num_planes, H, W) f32 interpolated varyings (None if
-    spec is empty), and the (H, W/emit_strips) i32 strip max-index plane
-    (None unless emit_strips).
+    emitted), and the (num_planes, H, W) f32 interpolated varyings (None if
+    spec is empty).
     """
     H = tiles_y * tile_h
     W = tiles_x * tile_w
-    n_planes = sum(c for (_, c, _) in spec) if spec else 0
-    with_idx = emit_idx or n_planes > 0 or emit_strips > 0  # later phases read it
-    assert emit_z or with_idx, "kernel must emit at least one target"
-    if emit_strips:
-        assert tile_w % emit_strips == 0
-    idx_i16 = jnp.dtype(idx_dtype) == jnp.int16
+    n_planes = len(_plane_layout(spec))
+    assert emit_z or emit_idx or n_planes, "kernel must emit at least one target"
+    for d in (tile_h, tile_w):
+        assert d > 0 and d & (d - 1) == 0, "tiles must be powers of two"
 
     if row_tile_offset is None:
         row_tile_offset = jnp.zeros((1,), jnp.int32)
+    inputs = [starts, row_tile_offset.astype(jnp.int32)]
+    if csr_tris is not None:
+        inputs.append(csr_tris)
+    inputs.append(records)
 
-    tile_spec = pl.BlockSpec((tile_h, tile_w), lambda ty, tx, *_: (ty, tx))
-    in_specs = [
-        # Whole record array, constant index map -> fetched to VMEM once
-        # and kept resident across all grid steps.
-        pl.BlockSpec(
-            csr_records.shape, lambda ty, tx, *_: (0, 0), memory_space=pltpu.VMEM
-        ),
-    ]
-    out_specs = []
+    def whole(arr):
+        return pl.BlockSpec(arr.shape, lambda ty, tx: (0,) * arr.ndim)
+
+    tile_spec = pl.BlockSpec((tile_h, tile_w), lambda ty, tx: (ty, tx))
     out_shape = []
     if emit_z:
-        out_specs.append(tile_spec)
         out_shape.append(jax.ShapeDtypeStruct((H, W), jnp.float32))
-    if with_idx:
-        out_specs.append(tile_spec)
-        out_shape.append(jax.ShapeDtypeStruct((H, W), jnp.dtype(idx_dtype)))
-    if n_planes:
-        out_specs.append(
-            pl.BlockSpec((n_planes, tile_h, tile_w), lambda ty, tx, *_: (0, ty, tx))
-        )
-        out_shape.append(jax.ShapeDtypeStruct((n_planes, H, W), jnp.float32))
-    if emit_strips:
-        sw = tile_w // emit_strips
-        out_specs.append(
-            pl.BlockSpec((1, tile_h, sw), lambda ty, tx, *_: (tx, ty, 0))
-        )
-        out_shape.append(
-            jax.ShapeDtypeStruct((tiles_x, H, sw), jnp.int32)
-        )
-
-    scratch_shapes = []
-    if not emit_z:
-        scratch_shapes.append(pltpu.VMEM((tile_h, tile_w), jnp.float32))
-    if idx_i16:
-        scratch_shapes.append(pltpu.VMEM((tile_h, tile_w), jnp.int32))
-
-    # Scalar-prefetch operands (SMEM): starts, row_tile_offset, and — in
-    # indirect mode — the sorted triangle-id list (dynamic scalar indexing
-    # is native in SMEM; a 1-D VMEM array cannot be indexed along lanes).
-    prefetch = [starts, row_tile_offset.astype(jnp.int32)]
-    if csr_tris is not None:
-        prefetch.append(csr_tris)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(prefetch),
-        grid=(tiles_y, tiles_x),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch_shapes,
-    )
+    if emit_idx:
+        out_shape.append(jax.ShapeDtypeStruct((H, W), jnp.int32))
+    out_shape += [jax.ShapeDtypeStruct((H, W), jnp.float32)] * n_planes
 
     kernel = functools.partial(
         _raster_kernel,
@@ -439,130 +285,24 @@ def rasterize_pallas(
         tile_w=tile_w,
         tiles_x=tiles_x,
         spec=spec,
-        emit_idx=with_idx,
+        emit_idx=emit_idx,
         emit_z=emit_z,
-        emit_strips=emit_strips,
-        group=group,
         indirect=csr_tris is not None,
-        idx_i16=idx_i16,
+        interpret=interpret,
     )
     outs = pl.pallas_call(
         kernel,
         out_shape=out_shape,
-        grid_spec=grid_spec,
+        grid=(tiles_y, tiles_x),
+        in_specs=[whole(a) for a in inputs],
+        out_specs=[tile_spec] * len(out_shape),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(*prefetch, csr_records)
+        name="raster_tile",
+    )(*inputs)
     outs = list(outs)
     z = outs.pop(0) if emit_z else None
-    idx = outs.pop(0) if with_idx else None
-    varys = outs.pop(0) if n_planes else None
-    strips = None
-    if emit_strips:
-        s3 = outs.pop(0)  # (tiles_x, H, tile_w//SL)
-        strips = jnp.moveaxis(s3, 0, 1).reshape(H, W // emit_strips)
-    return z, idx, varys, strips
-
-
-def _fused_raster_kernel(
-    starts1_ref, starts2_ref, row_off_ref, *rest,
-    tile_h, tile_w, tiles_x, group, indirect,
-):
-    rest = list(rest)
-    tris1_ref = rest.pop(0) if indirect else None
-    tris2_ref = rest.pop(0) if indirect else None
-    rec1_ref = rest.pop(0)
-    rec2_ref = rest.pop(0)
-    z_ref, idx_ref, z2_ref = rest  # outputs: shadow z, camera idx; scratch z2
-
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile = ty * tiles_x + tx
-    row_off = row_off_ref[0]
-    pxf, pyf = _tile_pixel_coords(tile_h, tile_w, ty, tx, row_off)
-
-    z_ref[:] = jnp.full((tile_h, tile_w), F32_MIN, jnp.float32)
-    z2_ref[:] = jnp.full((tile_h, tile_w), F32_MIN, jnp.float32)
-    idx_ref[:] = jnp.full((tile_h, tile_w), -1, idx_ref.dtype)
-
-    # Pass 1: shadow depth (no index target — shader.rs:694-709).
-    _depth_resolve(
-        rec1_ref, tris1_ref, starts1_ref[tile], starts1_ref[tile + 1],
-        pxf, pyf, z_ref, None, group,
-    )
-    # Pass 2: camera winning index (z resolves in scratch, never written).
-    _depth_resolve(
-        rec2_ref, tris2_ref, starts2_ref[tile], starts2_ref[tile + 1],
-        pxf, pyf, z2_ref, idx_ref, group,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "tile_h", "tile_w", "tiles_y", "tiles_x", "group", "interpret",
-    ),
-)
-def rasterize_pallas_fused(
-    rec1, starts1, tris1, rec2, starts2, tris2,
-    row_tile_offset=None,
-    *,
-    tile_h,
-    tile_w,
-    tiles_y,
-    tiles_x,
-    group=16,
-    interpret=False,
-):
-    """Both passes of a two-pass pipeline in ONE pallas_call.
-
-    Each grid step runs the shadow pass's depth loop (into the emitted
-    shadow-z target) and the camera pass's depth loop (z in VMEM scratch,
-    winning index emitted) on its tile — halving the grid-step count,
-    whose ~1 us/step fixed cost is the dominant raster term on the dev
-    chip (scripts/knob_sweep3.py).  The passes are data-independent (only
-    shading consumes the shadow map), so fusion is pure scheduling.
-
-    rec/tris pairs follow bin_triangles' csr_indirect convention: tris may
-    be None (rec is then the gathered CSR array) but both passes must
-    agree.  Returns (shadow_z, idx) of padded spatial shape.
-    """
-    H = tiles_y * tile_h
-    W = tiles_x * tile_w
-    indirect = tris1 is not None
-    assert (tris2 is not None) == indirect
-
-    if row_tile_offset is None:
-        row_tile_offset = jnp.zeros((1,), jnp.int32)
-
-    tile_spec = pl.BlockSpec((tile_h, tile_w), lambda ty, tx, *_: (ty, tx))
-    full = lambda arr: pl.BlockSpec(
-        arr.shape, lambda ty, tx, *_: (0,) * arr.ndim, memory_space=pltpu.VMEM
-    )
-    prefetch = [starts1, starts2, row_tile_offset.astype(jnp.int32)]
-    if indirect:
-        prefetch += [tris1, tris2]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(prefetch),
-        grid=(tiles_y, tiles_x),
-        in_specs=[full(rec1), full(rec2)],
-        out_specs=[tile_spec, tile_spec],
-        scratch_shapes=[pltpu.VMEM((tile_h, tile_w), jnp.float32)],
-    )
-    kernel = functools.partial(
-        _fused_raster_kernel,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        tiles_x=tiles_x,
-        group=group,
-        indirect=indirect,
-    )
-    shadow_z, idx = pl.pallas_call(
-        kernel,
-        out_shape=[
-            jax.ShapeDtypeStruct((H, W), jnp.float32),
-            jax.ShapeDtypeStruct((H, W), jnp.int32),
-        ],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(*prefetch, rec1, rec2)
-    return shadow_z, idx
+    idx = outs.pop(0) if emit_idx else None
+    varys = jnp.stack(outs) if n_planes else None
+    return z, idx, varys

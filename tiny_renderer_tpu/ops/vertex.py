@@ -36,10 +36,10 @@ def gather_triangles(geom, xp):
     """Per-triangle attribute gather: positions (T,3v,3), uvs (T,3v,2), normals.
 
     The index arrays are frame-invariant, so these gathers (~60k rows/frame
-    for diablo shadow: pos for both passes + uv + normal, at ~7.3 ns/row on
-    the dev chip) can be hoisted out of the frame entirely: if the geometry
-    was pre-expanded with expand_geometry (Scene does this once at
-    construction), the (T, 3, ...) arrays are used directly."""
+    for diablo shadow: pos for both passes + uv + normal) can be hoisted
+    out of the frame entirely: if the geometry was pre-expanded with
+    expand_geometry (Scene does this once at construction), the
+    (T, 3, ...) arrays are used directly."""
     if "pos_tri" in geom:
         return {
             "pos": geom["pos_tri"],

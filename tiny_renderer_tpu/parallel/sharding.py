@@ -1,14 +1,15 @@
-"""Multi-chip scale-out: shard_map over screen-row shards (+ frame batch).
+"""Multi-device scale-out: shard_map over screen-row shards (+ frame batch).
 
 The reference is a single-process renderer with no distributed story
-(SURVEY.md §5.8).  The TPU-native scale-out maps the renderer's natural data
+(SURVEY.md §5.8).  The scale-out maps the renderer's natural data
 parallelism onto a jax.sharding.Mesh:
 
 * "rows" axis — the screen's y axis is sharded; triangles (a few thousand,
   ~KBs) are replicated, so each device rasterizes and shades only its own
   row slab with zero communication.  The single cross-device dependency is
   the shadow map of two-pass pipelines: pass 1 depth is computed row-local
-  and `jax.lax.all_gather`ed over ICI before pass 2's arbitrary-position
+  and `jax.lax.all_gather`ed over the interconnect (NVLink between cards)
+  before pass 2's arbitrary-position
   lookups (shader.rs:762-785 can sample anywhere).
 * "batch" axis — independent frames (animation/orbit burst rendering) shard
   trivially: render_batch_sharded shards a batch of camera/light states over
@@ -19,7 +20,9 @@ parallelism onto a jax.sharding.Mesh:
   binning) — the TP analog for geometry-heavy scenes, where row sharding
   would replicate the whole vertex stage per device.
 
-Everything compiles under one jit/shard_map; collectives ride ICI.
+Everything compiles under one jit/shard_map.  make_row_mesh / make_pp_mesh
+lay jax.devices() out in order; the four cards of one host are joined all
+to all, so no order is worse than another.
 """
 
 from __future__ import annotations
@@ -30,27 +33,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-import dataclasses
-
 from ..ops import mathlib as ml
-from ..ops.binning import bin_triangles
-from ..ops.raster_jnp import rasterize_jnp
-from ..ops.raster_pallas import rasterize_pallas
 from ..ops.vertex import triangle_setup
 from ..pipelines import shaders
 from ..pipelines.frame import (
     PIPELINES,
     registry_generation,
+    resolve_backend,
     _add_const_gather,
     _fragments_from_planes,
-    _fused_raster,
-    _idx_dtype,
     _planes_spec,
+    _rasterize,
     _shade_jnp_path,
     _shade_strips,
     _shadow_for_shade,
-    _strip_mask_len,
-    _use_fused_raster,
 )
 from ..pipelines.shaders import VARYING_SPECS, kernel_varying_spec
 
@@ -65,52 +61,6 @@ def make_row_mesh(devices=None, batch: int = 1):
 
     arr = np.array(devices).reshape(batch, n // batch)
     return Mesh(arr, axis_names=("batch", "rows"))
-
-
-def _raster_shard(setup, config, rows_per_shard, y0, backend, spec=(),
-                  emit_idx=True, emit_z=True, emit_strips=0):
-    """Rasterize this shard's row slab with the selected backend.
-
-    Pallas path: bins against a LOCAL config window (rows_per_shard tall)
-    with the shard's tile-row offset, so each device only evaluates its own
-    (tile, triangle) incidences; the kernel writes local row-slab targets.
-    emit_z=False skips the z target's HBM write (the strip-compacted shade
-    consumes idx only — same strategy as the single-device path,
-    frame._rasterize).
-    """
-    W = config.width
-    if backend == "jnp":
-        z, idx = rasterize_jnp(setup, rows_per_shard, W, config.tri_block, y_offset=y0)
-        return z, idx, None, None, jnp.asarray(False)
-    local_cfg = dataclasses.replace(config, height=rows_per_shard)
-    row_off = y0 // config.tile_h
-    records, tris, starts, overflowed = bin_triangles(
-        setup, local_cfg, spec, row_tile_offset=row_off
-    )
-    z, idx, varys, strips = rasterize_pallas(
-        records,
-        starts,
-        jnp.reshape(row_off, (1,)).astype(jnp.int32),
-        tris,
-        idx_dtype=_idx_dtype(setup, local_cfg),
-        tile_h=local_cfg.tile_h,
-        tile_w=local_cfg.tile_w,
-        tiles_y=local_cfg.tiles_y,
-        tiles_x=local_cfg.tiles_x,
-        spec=spec,
-        emit_idx=emit_idx,
-        emit_z=emit_z,
-        emit_strips=emit_strips,
-        group=config.raster_group,
-        interpret=(backend == "pallas_interpret"),
-    )
-    return (
-        z[:rows_per_shard, :W] if z is not None else None,
-        idx[:rows_per_shard, :W] if idx is not None else None,
-        varys[:, :rows_per_shard, :W] if varys is not None else None,
-        strips[:rows_per_shard, : W // emit_strips] if strips is not None else None,
-        overflowed,
-    )
 
 
 def _tri_sharded_setup(geom, uniforms, config, n_rows, *, matrix_key="vpmv",
@@ -165,7 +115,7 @@ def _tri_sharded_setup(geom, uniforms, config, n_rows, *, matrix_key="vpmv",
 
 def _assemble_shade(setup, idx, pipeline, uniforms, textures, config,
                     shadow_full, y0, rows_per_shard, compact, kspec,
-                    varys=None, strips=None):
+                    varys=None):
     """Texture pack + shadow relayout + shade of one rasterized row slab —
     the tail every sharded path shares (identical to frame.render_frame's
     shade assembly, slab-local scatter targets, global pixel coords)."""
@@ -181,7 +131,7 @@ def _assemble_shade(setup, idx, pipeline, uniforms, textures, config,
         return _shade_strips(
             setup, idx, pipeline, uniforms, textures, config,
             shadow_full if spec.two_pass else None, y_offset=y0,
-            strip_mask=strips, planes=varys, planes_spec=kspec,
+            planes=varys, planes_spec=kspec,
         )
     if varys is None:
         frag = _shade_jnp_path(setup, idx, pipeline, config, y_offset=y0)
@@ -213,14 +163,16 @@ def _camera_pass_and_shade(setup, uniforms, pipeline, textures, config,
             if backend != "jnp"
             else VARYING_SPECS[pipeline]
         )
-    z, idx, varys, strips, ovf = _raster_shard(
-        setup, config, rows_per_shard, y0, backend, spec=kspec, emit_z=needs_z,
-        emit_strips=_strip_mask_len(config) if compact else 0,
+    # Each device rasterizes only its own slab of rows_per_shard rows from
+    # global row y0 (a whole tile row).
+    z, idx, varys, ovf = _rasterize(
+        setup, config, backend, spec=kspec, emit_z=needs_z,
+        rows=rows_per_shard, y0=y0,
     )
     ovf = ovf | setup["coord_overflow"]
     frame = _assemble_shade(
         setup, idx, pipeline, uniforms, textures, config, shadow_full, y0,
-        rows_per_shard, compact, kspec, varys=varys, strips=strips,
+        rows_per_shard, compact, kspec, varys=varys,
     )
     return frame, z, ovf
 
@@ -231,15 +183,14 @@ def _render_shard(geom, textures, light_direction, look_from, look_at, up,
     """Render this device's row slab.  Runs inside shard_map with axis "rows".
 
     needs_z=False (static) drops the camera pass's z output — on the kernel
-    backends the z-target HBM write is skipped entirely (depth resolves in
-    VMEM scratch), mirroring frame.render_frame's single-device strategy;
+    backends the z target is never written (depth stays in the kernel's
+    registers), mirroring frame.render_frame's single-device strategy;
     the return tuple then omits z.
     """
     spec = PIPELINES[pipeline]
     W = config.width
     d = jax.lax.axis_index("rows")
     y0 = d * rows_per_shard
-    compact = backend != "jnp" and config.compact_shade
 
     if config.shard_triangles and n_rows > 1:
         make_setup = functools.partial(_tri_sharded_setup, n_rows=n_rows)
@@ -263,61 +214,36 @@ def _render_shard(geom, textures, light_direction, look_from, look_at, up,
 
     setup = make_setup(geom, uniforms, config, needs=spec.needs)
     # Same shade/raster strategy as the single-device path
-    # (frame.render_frame): fused two-pass raster when the z target is not
-    # needed, strip-compacted shading on the kernel backends — each device
-    # compacts and shades only its own slab's covered strips; with
-    # config.strip_planes the kernel interpolates the varying planes and
-    # the slab shade reads them at strip granularity.
-    pspec = _planes_spec(pipeline, textures, config, backend) if compact else None
-    # replicate_pass1 needs the full-height light view — incompatible with
-    # the fused per-window two-pass kernel.
-    if (not (spec.two_pass and config.replicate_pass1)
-            and _use_fused_raster(spec, config, backend, setup, pspec, needs_z)):
-        shadow_p, idx_p, ovf1, ovf2 = _fused_raster(
-            setup1, setup, config, backend,
-            local_cfg=dataclasses.replace(config, height=rows_per_shard),
-            row_off=y0 // config.tile_h,
-        )
-        shadow_local = shadow_p[:rows_per_shard, :W]
-        idx = idx_p[:rows_per_shard, :W]
-        z = None
-        shadow_full = jax.lax.all_gather(shadow_local, "rows").reshape(-1, W)
-        frame = _assemble_shade(
-            setup, idx, pipeline, uniforms, textures, config, shadow_full,
-            y0, rows_per_shard, compact, kspec=(),
-        )
-    else:
-        if spec.two_pass:
-            if config.replicate_pass1:
-                # Rasterize the light view at FULL height on every device:
-                # no collective at all, n x redundant pass-1 compute.  The
-                # full-height raster is exactly the single-device pass 1,
-                # so the assembled map is bit-identical to the all_gather.
-                shadow_full, _, _, _, ovf1 = _raster_shard(
-                    setup1, config, config.height, 0, backend, spec=(),
-                    emit_idx=False,
-                )
-                shadow_local = jax.lax.dynamic_slice_in_dim(
-                    shadow_full, y0, rows_per_shard
-                )
-            else:
-                shadow_local, _, _, _, ovf1 = _raster_shard(
-                    setup1, config, rows_per_shard, y0, backend, spec=(),
-                    emit_idx=False,
-                )
-                # The only cross-device dependency: assemble the full
-                # shadow map.
-                shadow_full = jax.lax.all_gather(
-                    shadow_local, "rows"
-                ).reshape(-1, W)
-            ovf1 = ovf1 | setup1["coord_overflow"]
+    # (frame.render_frame): strip-compacted shading on the kernel backends —
+    # each device compacts and shades only its own slab's covered strips.
+    if spec.two_pass:
+        if config.replicate_pass1:
+            # Rasterize the light view at FULL height on every device: no
+            # collective at all, n x redundant pass-1 compute.  The
+            # full-height raster is exactly the single-device pass 1, so
+            # the assembled map is bit-identical to the all_gather.
+            shadow_full, _, _, ovf1 = _rasterize(
+                setup1, config, backend, emit_idx=False
+            )
+            shadow_local = jax.lax.dynamic_slice_in_dim(
+                shadow_full, y0, rows_per_shard
+            )
         else:
-            shadow_local = jnp.full((rows_per_shard, W), ml.F32_MIN, jnp.float32)
-            shadow_full = None
-        frame, z, ovf2 = _camera_pass_and_shade(
-            setup, uniforms, pipeline, textures, config, backend,
-            rows_per_shard, y0, shadow_full, needs_z,
-        )
+            shadow_local, _, _, ovf1 = _rasterize(
+                setup1, config, backend, emit_idx=False,
+                rows=rows_per_shard, y0=y0,
+            )
+            # The only cross-device dependency: assemble the full shadow
+            # map.
+            shadow_full = jax.lax.all_gather(shadow_local, "rows").reshape(-1, W)
+        ovf1 = ovf1 | setup1["coord_overflow"]
+    else:
+        shadow_local = jnp.full((rows_per_shard, W), ml.F32_MIN, jnp.float32)
+        shadow_full = None
+    frame, z, ovf2 = _camera_pass_and_shade(
+        setup, uniforms, pipeline, textures, config, backend,
+        rows_per_shard, y0, shadow_full, needs_z,
+    )
 
     # Per-shard overflow (binning caps / coord exactness drops), shape (1,)
     # so shard_map can concatenate over "rows"; callers any()-reduce it.
@@ -385,21 +311,21 @@ def _render_frame_sharded_jit(
 
 def render_frame_sharded(
     geom, textures, light_direction, look_from, look_at, up, *, pipeline,
-    config, mesh, backend="jnp", needs_z=True,
+    config, mesh, backend="auto", needs_z=True,
 ):
     """Row-sharded single frame. Returns dict(frame, z, shadow) of full size.
 
     config.height must be divisible by the "rows" axis size (and, for the
     pallas backends, each shard's rows by tile_h).  needs_z=False skips the
     camera pass's z target entirely (returned "z" is None) — the kernel
-    backends then never write it to HBM, matching the single-device path.
+    backends then never write it, matching the single-device path.
     """
     # The registration generation rides in the static jit key so a
     # re-registered pipeline name never hits stale executables
     # (frame.registry_generation).
     return _render_frame_sharded_jit(
         geom, textures, light_direction, look_from, look_at, up,
-        pipeline=pipeline, config=config, mesh=mesh, backend=backend,
+        pipeline=pipeline, config=config, mesh=mesh, backend=resolve_backend(backend),
         needs_z=needs_z, gen=registry_generation(pipeline),
     )
 
@@ -461,7 +387,7 @@ def _render_batch_sharded_jit(
 
 def render_batch_sharded(
     geom, textures, light_directions, look_froms, look_at, up, *, pipeline,
-    config, mesh, backend="jnp", needs_z=True,
+    config, mesh, backend="auto", needs_z=True,
 ):
     """Batch of frames on a 2D ("batch", "rows") mesh.
 
@@ -472,7 +398,7 @@ def render_batch_sharded(
     """
     return _render_batch_sharded_jit(
         geom, textures, light_directions, look_froms, look_at, up,
-        pipeline=pipeline, config=config, mesh=mesh, backend=backend,
+        pipeline=pipeline, config=config, mesh=mesh, backend=resolve_backend(backend),
         needs_z=needs_z, gen=registry_generation(pipeline),
     )
 
@@ -494,7 +420,7 @@ def make_pp_mesh(devices=None):
 
 def render_sequence_pipelined(
     geom, textures, light_directions, look_froms, look_at, up, *, pipeline,
-    config, mesh, backend="jnp",
+    config, mesh, backend="auto",
 ):
     """Two-pass PIPELINE parallelism over a ("stage", "rows") mesh.
 
@@ -515,7 +441,7 @@ def render_sequence_pipelined(
     "rows" assembles the light map inside each stage group (stage 1's is
     discarded), one ppermute moves it stage 0 -> stage 1.  Frames are
     bit-identical to render_frame_sharded / the single-device path — the
-    slab raster/shade code is shared (_raster_shard,
+    slab raster/shade code is shared (frame._rasterize,
     _camera_pass_and_shade) and the handoff is a pure permutation.
 
     Only two-pass pipelines make sense here (ValueError otherwise);
@@ -526,7 +452,7 @@ def render_sequence_pipelined(
     """
     return _render_sequence_pipelined_jit(
         geom, textures, light_directions, look_froms, look_at, up,
-        pipeline=pipeline, config=config, mesh=mesh, backend=backend,
+        pipeline=pipeline, config=config, mesh=mesh, backend=resolve_backend(backend),
         gen=registry_generation(pipeline),
     )
 
@@ -596,9 +522,9 @@ def _render_sequence_pipelined_jit(
                     geom, u1, config, matrix_key="shadow_matrix", cull=False,
                     needs=(), xp=jnp,
                 )
-                slab, _, _, _, o = _raster_shard(
-                    setup1, config, rows_per, y0, backend, spec=(),
-                    emit_idx=False,
+                slab, _, _, o = _rasterize(
+                    setup1, config, backend, emit_idx=False,
+                    rows=rows_per, y0=y0,
                 )
                 return slab, jnp.reshape(
                     (o | setup1["coord_overflow"]).astype(jnp.int32), (1,)

@@ -18,17 +18,9 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import mathlib as ml
-from ..ops.binning import (
-    SMEM_ID_LIST_BUDGET_BYTES,
-    VMEM_RECORD_ROW_BYTES,
-    VMEM_RECORDS_BUDGET_BYTES,
-    _round_up,
-    bin_triangles,
-    compact_scatter,
-    incidence_cap,
-)
+from ..ops.binning import bin_triangles, compact_scatter
 from ..ops.raster_jnp import rasterize_jnp
-from ..ops.raster_pallas import rasterize_pallas, rasterize_pallas_fused
+from ..ops.raster_pallas import rasterize_pallas
 from ..ops.vertex import triangle_setup
 from . import shaders
 from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
@@ -262,254 +254,89 @@ def unregister_pipeline(name):
 _BUILTIN_PIPELINES = frozenset(PIPELINES)
 
 
-def _auto_row_bands(setup, config):
-    """Static row-band count for the kernel raster (config.row_bands).
+BACKENDS = ("pallas", "pallas_interpret", "jnp")
 
-    1 for every reference-class scene — the certified single-pass layout.
-    Capacity-scale scenes whose CSR id list exceeds the SMEM scalar-
-    prefetch budget AND whose gathered-record window exceeds the VMEM
-    budget (both walls hit by the 80k/321k-triangle stress configs in the
-    round-5 live window) are rasterized in R disjoint tile-row bands with
-    proportionally smaller incidence caps.  Purely shape/config static.
+
+def resolve_backend(backend="auto"):
+    """The raster backend to use, chosen from the platform for "auto".
+
+    "auto" maps the platform JAX runs on to its raster: "gpu" -> "pallas"
+    (the binned Triton kernel), "cpu" -> "jnp" (the dense reference
+    raster).  Any other platform has no raster and raises.  "pallas"
+    compiles only for a GPU and raises elsewhere; "pallas_interpret" runs
+    the same kernel in the Pallas interpreter and is never chosen
+    automatically.
     """
-    if config.row_bands:
-        return min(config.row_bands, config.tiles_y)
-    T = setup["a1"].shape[0]
-    cap = incidence_cap(T, config)
-    # VMEM pads record rows to 128 lanes (binning.VMEM_RECORD_ROW_BYTES).
-    indirect_ok = (config.csr_indirect
-                   and T * VMEM_RECORD_ROW_BYTES <= VMEM_RECORDS_BUDGET_BYTES)
-    if indirect_ok and cap * 4 <= SMEM_ID_LIST_BUDGET_BYTES:
-        return 1
-    if cap * VMEM_RECORD_ROW_BYTES <= VMEM_RECORDS_BUDGET_BYTES:
-        return 1  # the gathered-record fallback fits as a single band
-    # Per-band cap bound for the layout the bands will actually get from
-    # bin_triangles: the SMEM id-list budget when indirection is
-    # available, the VMEM record-window budget otherwise.
-    per_band = (SMEM_ID_LIST_BUDGET_BYTES // 4 if indirect_ok
-                else VMEM_RECORDS_BUDGET_BYTES // VMEM_RECORD_ROW_BYTES)
-    ty = config.tiles_y
-    R = min(max(-(-cap // max(per_band, 4096)), 2), ty)
-    # Bands get ceil(ty/R) tile rows and a proportional cap; bump R until
-    # that cap (not cap/R — the rounding differs) fits the budget.
-    while R < ty:
-        bt = -(-ty // R)
-        if _round_up(-(-cap * bt // ty), 8) <= per_band:
-            break
-        R += 1
-    return R
-
-
-def _banded_caps(cap_total, tiles_y, band_tiles):
-    """Per-band incidence cap: the global cap's share of the band's tile
-    rows (keeps the global ~4x-mean margin per band), floored like
-    incidence_cap."""
-    return max(4096, _round_up(-(-cap_total * band_tiles // tiles_y), 8))
-
-
-def _band_plan(setup, config):
-    """[(row_tile_offset, band_tiles, band_config)] for the banded raster;
-    a single entry when _auto_row_bands says 1.  Shared by
-    _rasterize_banded and profile's bin-stage prefix so the measured
-    binning work always matches the rendered binning work."""
-    R = _auto_row_bands(setup, config)
-    if R == 1:
-        return [(0, config.tiles_y, config)]
-    ty = config.tiles_y
-    band_tiles = -(-ty // R)
-    cap_total = incidence_cap(setup["a1"].shape[0], config)
-    plan = []
-    t0 = 0
-    while t0 < ty:
-        bt = min(band_tiles, ty - t0)
-        plan.append((t0, bt, dataclasses.replace(
-            config,
-            height=bt * config.tile_h,
-            max_incidences=_banded_caps(cap_total, ty, bt),
-        )))
-        t0 += bt
-    return plan
-
-
-def _rasterize_banded(setup, config, backend, spec, emit_idx, emit_z,
-                      emit_strips):
-    """Kernel raster in R disjoint tile-row bands (config.row_bands doc).
-
-    Each band bins with row_tile_offset — the row-sharded path's
-    windowing, so per-band tile contents (and therefore pixels) are
-    bit-identical to the single-band render by construction; bands just
-    bound the id-list / record-window size the kernel sees at once.
-    Per-band caps can truncate coverage a single global cap would not —
-    flagged through the same `overflowed` contract (and presentation
-    warning); max_incidences raises them.
-    """
-    H, W = config.height, config.width
-    zs, idxs, vys, sts = [], [], [], []
-    overflowed = jnp.asarray(False)
-    for t0, bt, cfg_b in _band_plan(setup, config):
-        records, tris, starts, ovf_b = bin_triangles(
-            setup, cfg_b, spec, row_tile_offset=t0)
-        z, idx, varys, strips = rasterize_pallas(
-            records,
-            starts,
-            jnp.full((1,), t0, jnp.int32),  # global pixel rows
-            tris,
-            idx_dtype=_idx_dtype(setup, config),
-            tile_h=config.tile_h,
-            tile_w=config.tile_w,
-            tiles_y=bt,
-            tiles_x=config.tiles_x,
-            spec=spec,
-            emit_idx=emit_idx,
-            emit_z=emit_z,
-            emit_strips=emit_strips,
-            group=config.raster_group,
-            interpret=(backend == "pallas_interpret"),
+    platform = jax.default_backend()
+    if backend == "auto":
+        if platform == "gpu":
+            return "pallas"
+        if platform == "cpu":
+            return "jnp"
+        raise ValueError(f"no raster backend for platform {platform!r}")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown raster backend {backend!r}; expected 'auto' or one of "
+            f"{BACKENDS}"
         )
-        zs.append(z)
-        idxs.append(idx)
-        vys.append(varys)
-        sts.append(strips)
-        overflowed = overflowed | ovf_b
-
-    def cat(parts, axis=0):
-        return None if parts[0] is None else jnp.concatenate(parts, axis)
-
-    z, idx, strips = cat(zs), cat(idxs), cat(sts)
-    varys = cat(vys, axis=1)  # (planes, H, W)
-    return (
-        z[:H, :W] if z is not None else None,
-        idx[:H, :W] if idx is not None else None,
-        varys[:, :H, :W] if varys is not None else None,
-        strips[:H, : W // emit_strips] if strips is not None else None,
-        overflowed,
-    )
+    if backend == "pallas" and platform != "gpu":
+        raise ValueError(
+            f"backend 'pallas' compiles for a GPU, but JAX runs on "
+            f"{platform!r}; use 'jnp', or 'pallas_interpret' to run the "
+            "kernel in the Pallas interpreter"
+        )
+    return backend
 
 
 def _rasterize(setup, config, backend, spec=(), emit_idx=True, emit_z=True,
-               emit_strips=0):
+               rows=None, y0=None):
     """Backend dispatch.
 
-    Returns (z, idx, varys, strips, overflowed) cropped to (height, width);
-    varys is None on the jnp backend (the gather path computes varyings),
-    strips is the per-strip coverage plane (None unless emit_strips on a
-    kernel backend).  The crops are lazy slices that XLA fuses into
-    consumers — keeping shading (and especially its per-pixel gathers, the
-    dominant cost) at the unpadded pixel count.  emit_z=False (kernel
-    backends) skips the z target's HBM write when the caller consumes idx
-    only.
+    Returns (z, idx, varys, overflowed) cropped to (rows, width).  rows is
+    config.height unless a row-sharded caller rasterizes the slab of that
+    many rows starting at global row y0 (a traced scalar; a whole tile row
+    on the kernel backends).  varys is None on the jnp backend (the gather
+    path computes varyings).  The crops are lazy slices that XLA fuses into
+    consumers — keeping shading at the unpadded pixel count.  emit_z=False
+    (kernel backends) skips the z target's write when the caller consumes
+    idx only.
     """
-    H, W = config.height, config.width
+    H = config.height if rows is None else rows
+    W = config.width
     if backend == "jnp":
-        z, idx = rasterize_jnp(setup, H, W, config.tri_block)
-        return z, idx, None, None, jnp.asarray(False)
-    if _auto_row_bands(setup, config) > 1:
-        return _rasterize_banded(setup, config, backend, spec, emit_idx,
-                                 emit_z, emit_strips)
-    records, tris, starts, overflowed = bin_triangles(setup, config, spec)
-    z, idx, varys, strips = rasterize_pallas(
+        z, idx = rasterize_jnp(
+            setup, H, W, config.tri_block, y_offset=0 if y0 is None else y0
+        )
+        return z, idx, None, jnp.asarray(False)
+    local = config if rows is None else dataclasses.replace(config, height=rows)
+    if y0 is None:
+        records, tris, starts, overflowed = bin_triangles(setup, local, spec)
+        off = None
+    else:
+        row_tile = y0 // config.tile_h
+        records, tris, starts, overflowed = bin_triangles(
+            setup, local, spec, row_tile_offset=row_tile
+        )
+        off = jnp.reshape(row_tile, (1,)).astype(jnp.int32)
+    z, idx, varys = rasterize_pallas(
         records,
         starts,
-        None,
+        off,
         tris,
-        idx_dtype=_idx_dtype(setup, config),
-        tile_h=config.tile_h,
-        tile_w=config.tile_w,
-        tiles_y=config.tiles_y,
-        tiles_x=config.tiles_x,
+        tile_h=local.tile_h,
+        tile_w=local.tile_w,
+        tiles_y=local.tiles_y,
+        tiles_x=local.tiles_x,
         spec=spec,
         emit_idx=emit_idx,
         emit_z=emit_z,
-        emit_strips=emit_strips,
-        group=config.raster_group,
         interpret=(backend == "pallas_interpret"),
     )
     return (
         z[:H, :W] if z is not None else None,
         idx[:H, :W] if idx is not None else None,
         varys[:, :H, :W] if varys is not None else None,
-        strips[:H, : W // emit_strips] if strips is not None else None,
         overflowed,
-    )
-
-
-def _idx_dtype(setup, config):
-    """int16 index target when the (static) triangle count fits and the
-    tile height matches the i16 sublane tile; int32 otherwise."""
-    if (
-        config.idx_int16
-        and setup["a1"].shape[0] < 32768
-        and config.tile_h % 16 == 0
-    ):
-        return "int16"
-    return "int32"
-
-
-def _strip_mask_len(config):
-    """strip_len when the kernel should emit the strip coverage plane for
-    the strip-compacted shade, else 0.  Flat strips only align with the
-    (H, W/SL) mask when width % SL == 0 (strips then never cross rows)."""
-    SL = config.strip_len
-    if (
-        config.strip_mask
-        and config.compact_shade
-        and config.width % SL == 0
-        and config.tile_w % SL == 0
-    ):
-        return SL
-    return 0
-
-
-def _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
-    """Single-source gate for the fused two-pass kernel.
-
-    Used by render_frame, parallel.sharding._render_shard, and
-    profile._prefix_fn — one predicate so the three call sites cannot
-    drift (the fused kernel has no varying-plane phase and only an int32
-    idx scratch, hence the last two conditions).
-    """
-    return (
-        spec.two_pass
-        and backend != "jnp"
-        and config.compact_shade
-        and config.fuse_passes
-        and not needs_z
-        and _idx_dtype(setup, config) == "int32"
-        and pspec is None
-        # Capacity-scale scenes rasterize in row bands (unfused path).
-        and _auto_row_bands(setup, config) == 1
-    )
-
-
-def _fused_raster(setup1, setup, config, backend, local_cfg=None, row_off=None):
-    """Bin both passes (no varying lanes) and run the fused two-pass
-    kernel.  local_cfg/row_off select the sharded row-slab variant
-    (parallel.sharding).  Returns (shadow_zp, idxp, ovf1, ovf2) with each
-    pass's coord_overflow folded in; targets are tile-padded — callers
-    crop."""
-    cfg = config if local_cfg is None else local_cfg
-    if row_off is None:
-        r1, t1, s1, ovfb1 = bin_triangles(setup1, cfg, ())
-        r2, t2, s2, ovfb2 = bin_triangles(setup, cfg, ())
-        off = None
-    else:
-        r1, t1, s1, ovfb1 = bin_triangles(setup1, cfg, (), row_tile_offset=row_off)
-        r2, t2, s2, ovfb2 = bin_triangles(setup, cfg, (), row_tile_offset=row_off)
-        off = jnp.reshape(row_off, (1,)).astype(jnp.int32)
-    shadow_zp, idxp = rasterize_pallas_fused(
-        r1, s1, t1, r2, s2, t2, off,
-        tile_h=cfg.tile_h,
-        tile_w=cfg.tile_w,
-        tiles_y=cfg.tiles_y,
-        tiles_x=cfg.tiles_x,
-        group=config.raster_group,
-        interpret=(backend == "pallas_interpret"),
-    )
-    return (
-        shadow_zp,
-        idxp,
-        ovfb1 | setup1["coord_overflow"],
-        ovfb2 | setup["coord_overflow"],
     )
 
 
@@ -545,7 +372,7 @@ def _gather_fragments(setup, idx, keys, config, y_offset=0, pixel_coords=None):
     """Reference-path fragment inputs: per-pixel gather of vertex attributes.
 
     All attributes are packed into ONE (T, L) f32 matrix and fetched with a
-    single per-pixel gather (TPU gathers cost per row), then barycentric
+    single per-pixel gather (one row per pixel), then barycentric
     coordinates are recomputed with the reference's exact f32 expression
     (scene.rs:192-196).  The edge coefficients are integers < 2^24, exact in
     f32.  Used by the jnp backend, the sharded path, and the strip-compacted
@@ -653,6 +480,7 @@ def render_frame(
     the returned "z" is then None.
     """
     config = config.resolve(pipeline)
+    backend = resolve_backend(backend)
     spec = PIPELINES[pipeline]
     vspec = VARYING_SPECS[pipeline]
     H, W = config.height, config.width
@@ -685,46 +513,34 @@ def render_frame(
 
     setup = triangle_setup(geom, uniforms, config, needs=spec.needs, xp=jnp)
 
-    # Fused two-pass raster: both passes' depth loops in ONE pallas_call
-    # (halves the ~1 us/grid-step fixed cost that dominates the raster
-    # stage on the dev chip).  Applies on the strip-shade path when the
-    # camera z target is not consumed (the burst posture).
-    if _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
-        shadow_zp, idxp, ovf1, ovf2 = _fused_raster(setup1, setup, config, backend)
-        shadow_z = shadow_zp[:H, :W]
-        idx = idxp[:H, :W]
-        z, varys, strips, kspec = None, None, None, ()
-    else:
-        if spec.two_pass:
-            shadow_z, _, _, _, ovf1 = _rasterize(
-                setup1, config, backend, spec=(), emit_idx=False
-            )
-            ovf1 = ovf1 | setup1["coord_overflow"]
-        else:
-            shadow_z = jnp.full((H, W), ml.F32_MIN, jnp.float32)
-        # Strip-compacted shading (default on the kernel backends): the
-        # raster kernel emits z+idx only and the gather-path shade runs on
-        # covered strips.  Bit-identical to the varying-plane shade on the
-        # same raster (tests/test_pipelines_parity.py); vs the jnp backend
-        # only the usual raster tie-flip budget applies.
-        if compact:
-            # Raster emits z+idx only and the shade re-derives varyings by
-            # attribute gather — unless strip_planes, where the kernel also
-            # interpolates the varying planes the strip shade will consume.
-            kspec = pspec or ()
-        else:
-            kspec = (
-                kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
-                if backend != "jnp"
-                else vspec
-            )
-        # The camera pass's z target is consumed only by callers (debug
-        # views, parity checks) — shading reads idx / varying planes.
-        z, idx, varys, strips, ovf2 = _rasterize(
-            setup, config, backend, spec=kspec, emit_z=needs_z,
-            emit_strips=_strip_mask_len(config) if compact else 0,
+    if spec.two_pass:
+        shadow_z, _, _, ovf1 = _rasterize(
+            setup1, config, backend, spec=(), emit_idx=False
         )
-        ovf2 = ovf2 | setup["coord_overflow"]
+        ovf1 = ovf1 | setup1["coord_overflow"]
+    else:
+        shadow_z = jnp.full((H, W), ml.F32_MIN, jnp.float32)
+    # Strip-compacted shading (default on the kernel backends): the raster
+    # kernel emits idx only and the gather-path shade runs on covered
+    # strips — unless strip_planes, where the kernel also interpolates the
+    # varying planes the strip shade will consume.  Bit-identical to the
+    # varying-plane shade on the same raster
+    # (tests/test_pipelines_parity.py); vs the jnp backend only the usual
+    # raster tie-flip budget applies.
+    if compact:
+        kspec = pspec or ()
+    else:
+        kspec = (
+            kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+            if backend != "jnp"
+            else vspec
+        )
+    # The camera pass's z target is consumed only by callers (debug
+    # views, parity checks) — shading reads idx / varying planes.
+    z, idx, varys, ovf2 = _rasterize(
+        setup, config, backend, spec=kspec, emit_z=needs_z
+    )
+    ovf2 = ovf2 | setup["coord_overflow"]
 
     # The shade consumes the shadow map through its own (possibly
     # tile-swizzled, config.shadow_tile) copy; callers see row-major.
@@ -737,7 +553,7 @@ def render_frame(
             )
         frame = _shade_strips(
             setup, idx, pipeline, uniforms, textures, config, shadow_shade,
-            strip_mask=strips, planes=varys, planes_spec=kspec,
+            planes=varys, planes_spec=kspec,
         )
         return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": ovf1 | ovf2}
 
@@ -793,7 +609,7 @@ def _shadow_for_shade(shadow_z, spec, config):
 
 
 def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
-                  y_offset=0, strip_mask=None, planes=None, planes_spec=()):
+                  y_offset=0, planes=None, planes_spec=()):
     """Strip-compacted shading: the gather-bound stage runs only on covered
     config.strip_len-pixel strips.
 
@@ -802,14 +618,11 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     (and their shadow-space transforms) stay global while the scatter
     targets stay slab-local.
 
-    Frame cost on TPU is dominated by per-pixel gathers (texture words,
-    shadow-map fetches) at a fixed per-row cost, and typical scenes cover
-    ~20% of pixels (~22% of 16-px strips).  Per-PIXEL compaction doesn't
-    pay for 1-2 gathers/pixel even with the cheap cumsum compaction and
-    lane-shaped batches (measured 8.9 vs 5.6 ms headline): the per-pixel
-    idx gather + word scatter outweigh the row savings.  Strip-level
-    compaction needs only a strip mask + cumsum (~free) and wide-row
-    gathers/scatters that run at HBM bandwidth.
+    The shade's per-pixel gathers (texture words, shadow-map fetches) run
+    only where there is coverage, and typical scenes cover ~20% of pixels
+    (~22% of 16-px strips).  Strip-level compaction needs only a strip
+    mask + cumsum and wide-row gathers/scatters; per-pixel compaction
+    would add a per-pixel idx gather and word scatter.
 
     Covered strips are processed in batches of config.strip_batch strips
     inside a lax.while_loop — ONE compiled shade body, and only the
@@ -831,15 +644,13 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     vspec = VARYING_SPECS[pipeline]
     H, W = idx.shape  # slab height x frame width
     HW = H * W
-    # Strip length: shorter strips track coverage tighter (diablo shadow:
-    # 18% pixel coverage => 25% of 32-px strips vs 39% of 128-px strips
-    # covered — ~36% fewer gather rows), while strip ids are still fetched
-    # as wide rows.  Shade math is reshaped to (B*SL/128, 128) so the
-    # 128-lane VPU stays full regardless of SL.
+    # Strip length: shorter strips track coverage tighter (fewer wasted
+    # gather rows), while strip ids are still fetched as wide rows.  Shade
+    # math is reshaped to (B*SL/128, 128) blocks regardless of SL.
     SL = config.strip_len
     n_strips = -(-HW // SL)
     B = config.strip_batch
-    R = (B * SL) // 128  # 128-lane rows per batch (validated in config)
+    R = (B * SL) // 128  # 128-wide rows per batch (validated in config)
 
     flat = idx.reshape(-1)
     if n_strips * SL != HW:
@@ -847,14 +658,7 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
             [flat, jnp.full((n_strips * SL - HW,), -1, idx.dtype)]
         )
     strips = flat.reshape(n_strips, SL)
-    if strip_mask is not None:
-        # Kernel-emitted per-strip max winning index: finding the covered
-        # strips reads a (H, W/SL) plane instead of the full idx plane
-        # (~SL x fewer bytes; the idx plane is then only touched by the
-        # covered-strip gathers below).
-        cov = strip_mask.reshape(-1) >= 0
-    else:
-        cov = jnp.any(strips >= 0, axis=1)
+    cov = jnp.any(strips >= 0, axis=1)
     count = jnp.sum(cov, dtype=jnp.int32)
 
     # Compacted covered-strip ids: comp[j] = id of the j-th covered strip.
@@ -990,8 +794,7 @@ def render_frame_jit(
 
 def make_frame_fn(pipeline, config, backend="auto"):
     """Returns fn(geom, textures, light_direction, look_from, look_at, up)."""
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
+    backend = resolve_backend(backend)
     # Resolve per-pipeline tuned defaults HERE so the jit cache keys on
     # the resolved config (render_frame's own resolve is then a no-op).
     return functools.partial(
@@ -1046,8 +849,7 @@ def render_burst(
 
 
 def make_burst_fn(pipeline, config, backend="auto", keep_frames=False):
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
+    backend = resolve_backend(backend)
     return functools.partial(
         render_burst,
         pipeline=pipeline,

@@ -246,12 +246,12 @@ _SAMPLERS = {
 
 
 # ---------------------------------------------------------------------------
-# Word-packed texture fetch.  u8 gathers are pathologically slow on TPU
-# (byte-granular); packing each texel's RGB into one i32 word makes the
-# fetch a native 32-bit gather (~10x faster), with shifts/masks on the VPU
-# to unpack.  Packing happens once per frame inside jit (pack_textures);
-# samplers transparently use the packed plane when present, so the NumPy
-# oracle (which never packs) keeps the plain u8 path.
+# Word-packed texture fetch.  Packing each texel's RGB into one i32 word
+# makes the fetch one 32-bit gather per texel instead of three byte
+# gathers, with shifts/masks to unpack (bit-identical either way; its cost
+# on the GPU is not measured yet).  Packing happens once per frame inside
+# jit (pack_textures); samplers transparently use the packed plane when
+# present, so the NumPy oracle (which never packs) keeps the plain u8 path.
 # ---------------------------------------------------------------------------
 
 
@@ -643,17 +643,16 @@ def dedup_gather(table, flat_idx, cap_shift=3):
     """Exact duplicate-collapsing gather: table[flat_idx] with equal indices
     fetched once (jnp only).
 
-    The occlusion probe's (n+1, batch) sample indices repeat heavily — a
-    strip-shade batch measures 16-26x duplication (scripts/
-    occlusion_dedup_stats.py) because the 17 samples sit at per-frame-
-    constant offsets around per-fragment base points that cluster within
-    consecutive strips.  Equal indices fetch equal values, so collapsing
-    them cannot change output (VERDICT r2 #5): sort the indices with their
+    The occlusion probe's (n+1, batch) sample indices repeat heavily
+    because the 17 samples sit at per-frame-constant offsets around
+    per-fragment base points that cluster within consecutive strips.
+    Equal indices fetch equal values, so collapsing them cannot change
+    output: sort the indices with their
     positions, fetch each run's head once from the (static) cap of
     M >> cap_shift unique slots, broadcast along runs via a rank gather
     from the small fetched table, and scatter back through the sort
-    permutation.  If a batch exceeds the unique cap (measured margin ~2-3x)
-    the plain gather runs instead — bit-identical either way.
+    permutation.  If a batch exceeds the unique cap the plain gather runs
+    instead — bit-identical either way.
     """
     import jax
     import jax.numpy as jnp

@@ -52,7 +52,7 @@ class Scene:
 
         # Pre-expand per-triangle attributes once: the index arrays are
         # frame-invariant, so the per-frame vertex stage skips ~60k gather
-        # rows (measured ~0.3 ms/frame on the dev chip's gather floor).
+        # rows.
         self._geom = expand_geometry(
             {
                 "positions": jnp.asarray(mesh.positions),
